@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
 
 1. device and build: needs a CUDA card; prints the card's name and power
-   limit (nvidia-smi) and builds the flash-attention kernel from
-   ray_tpu_torch/csrc with nvcc;
+   limit (nvidia-smi) and builds the flash-attention forward and backward
+   kernels from ray_tpu_torch/csrc with nvcc, one nvcc per source, started
+   together;
 2. every kernel of the serving path against its plain PyTorch version on
    the card, at the serving shape and at GQA, ragged and f32 cases, with
    CUDA-event times of the kernel, the plain version and one PyTorch library
@@ -18,10 +19,20 @@ printing the final line:
    threads through `@serve.batch(max_batch_size=8)`, the kernel's launch
    count read around that run, and one batch recomputed with the plain
    reference attention; then one batch alone, host-timed, and a
-   torch.profiler breakdown of one batch's device time by kernel.
+   torch.profiler breakdown of one batch's device time by kernel;
+4. the backward kernels (dq, dk/dv) after the forward kernel against the
+   plain forward and backward in f32 from the same inputs, at the training
+   shape causal and full, GQA, ragged and f32 cases, with CUDA-event times of
+   each kernel, the plain backward and the library's backward;
+5. training at bench.py's head configuration (d2048 L16 H16/16 ff5504
+   V32000, bf16 params, remat qkv_attn, batch 16 x 1024, strategy dp) through
+   `LMTrainContext` with random weights from a seeded generator: 2 warm-up
+   and 5 timed steps with exact kernel launch counts per step, one step with
+   remat_policy=None, a profile of one step, and the first step recomputed
+   from a copy of the initial state with the plain reference attention.
 
-Prints JSON lines of the serving numbers, the profile and the kernels, and last
-{"ok": true, "device": {...}}.
+Prints JSON lines of the serving and training numbers, the profiles and the
+kernels, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import serve
-from ray_tpu_torch.models import TransformerConfig, forward, init_params
+from ray_tpu_torch.models import LMTrainContext, TransformerConfig, forward, init_params
 from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 
@@ -57,10 +68,29 @@ TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 # that magnitude.
 LOGIT_TOL = 0.25
 
+# Backward kernels against the plain backward in f32 from the same inputs,
+# as a share of the largest |gradient|: bf16 kernels round P and dS to bf16
+# (2^-9 relative) for their products and store bf16 (another 2^-9), summed
+# over up to 1024 terms of both signs, so 2e-2; f32 kernels differ by the
+# summation order only, so 1e-4.
+BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The first training step with the kernels against the same step with the
+# plain reference attention (autograd through it), both bf16 from one state.
+# The loss is a mean over 16,384 tokens of terms whose logits differ by up to
+# ~0.25 (LOGIT_TOL) with both signs: 1e-2 absolute on a loss of ~10.4. The
+# gradient norm sums squares over 0.94e9 bf16 gradients whose attention parts
+# take other rounding paths: 3e-2 relative.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_NORM_RTOL = 3e-2
+
 N_REQUESTS = 16
 PROMPT_LEN = 1024
 MAX_BATCH = 8
 SEED = 0
+TRAIN_BATCH = 16
+TRAIN_SEQ = 1024
+WARMUP_STEPS = 2
+TIMED_STEPS = 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -93,13 +123,34 @@ def attention_bound(q, k, causal: bool):
     """Least time for the card: bytes of q, k, v, o and lse each moved once,
     and the two products' operations over the visible (q, k) pairs."""
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4 * d * pairs * b * h
+    flops = 4 * d * visible_pairs(sq, k.shape[1], causal) * b * h
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * sq * 4
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound(flops, nbytes, q.dtype)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+
+
+def bound(flops: float, nbytes: float, dtype):
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def backward_bounds(q, k, causal: bool) -> dict:
+    """Least times for the card of dq (three products over the visible
+    pairs: q k^T, dO v^T, dS k) and of dk/dv (four: q k^T, dO v^T, P^T dO,
+    dS^T q), each reading q, k, v, dO, lse and delta once and writing its
+    outputs once."""
+    b, sq, h, d = q.shape
+    product = 2 * d * visible_pairs(sq, k.shape[1], causal) * b * h
+    e = q.element_size()
+    reads = (2 * q.numel() + 2 * k.numel()) * e + 2 * b * h * sq * 4
+    return {
+        "dq": bound(3 * product, reads + q.numel() * e, q.dtype),
+        "dkv": bound(4 * product, reads + 2 * k.numel() * e, q.dtype),
+    }
 
 
 def rand_qkv(g, b, s, h, hkv, d, dtype):
@@ -262,7 +313,7 @@ def phase_serving(card: str) -> tuple:
         "peak_mem_gb": peak_gb, "flash_launches": launches,
         "max_logit_diff_vs_reference": diff,
     }
-    print(json.dumps({"profile": profile_batch(server, toks)}), flush=True)
+    print(json.dumps({"profile": profile_device(lambda: _forward(server, toks))}), flush=True)
     return serving, launches
 
 
@@ -283,16 +334,22 @@ def solo_batch_seconds(server, toks, reps: int = 3) -> list:
     return out
 
 
-def profile_batch(server, toks, top: int = 12) -> dict:
-    """Device time of one batch's forward by kernel (torch.profiler), and
-    the card's busy share of the profiled window."""
+# Kernel names (as the profiler shows them) of the port's kernels.
+KERNEL_MARKERS = {"flash_attn_fwd": "fwd_bf16_kernel", "flash_attn_bwd_dq": "dq_bf16_kernel",
+                  "flash_attn_bwd_dkv": "dkv_bf16_kernel"}
+
+
+def profile_device(fn, top: int = 12) -> dict:
+    """Device time of one call of `fn` by kernel (torch.profiler), the card's
+    busy share of the profiled window, and each port kernel's share of the
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    _forward(server, toks)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _forward(server, toks)
+        fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -304,16 +361,245 @@ def profile_batch(server, toks, top: int = 12) -> dict:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    flash_us = sum(r[0] for r in rows if "fwd_bf16_kernel" in r[2])
+    shares = {
+        name: sum(r[0] for r in rows if marker in r[2]) / total_us if total_us else None
+        for name, marker in KERNEL_MARKERS.items()
+    }
     return {
         "window_ms": window_us / 1e3,
         "device_ms": total_us / 1e3,
         "device_busy_share": total_us / window_us if window_us else None,
-        "flash_share_of_device": flash_us / total_us if total_us else None,
+        "flash_share_of_device": shares["flash_attn_fwd"],
+        "kernel_shares_of_device": shares,
         "top_kernels": [
             {"name": k[:90], "calls": n, "ms": us / 1e3} for us, n, k in rows[:top]
         ],
     }
+
+
+def phase_backward(g) -> dict:
+    """B1 then B2/B3 against the plain forward and backward in f32 from the
+    same inputs; returns each kernel's numbers at the training shape."""
+    cases = [
+        ("train_causal", TRAIN_BATCH, TRAIN_SEQ, 16, 16, torch.bfloat16, True),
+        ("train_full", TRAIN_BATCH, TRAIN_SEQ, 16, 16, torch.bfloat16, False),
+        ("gqa_16_4", TRAIN_BATCH, TRAIN_SEQ, 16, 4, torch.bfloat16, True),
+        ("ragged_1000", 2, 1000, 16, 16, torch.bfloat16, True),
+        ("f32_ragged_300", 2, 300, 16, 4, torch.float32, True),
+    ]
+    out = None
+    for name, b, s, h, hkv, dtype, causal in cases:
+        q, k, v = rand_qkv(g, b, s, h, hkv, 128, dtype)
+        do = torch.randn((b, s, h, 128), generator=g, device="cuda").to(dtype)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+        grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, do)]
+        o_p, lse_p = flash.flash_attention_fwd_plain(*f32[:3], causal=causal)
+        plain = flash.flash_attention_bwd_plain(*f32[:3], o_p, lse_p, f32[3], causal=causal)
+        errs = {}
+        for gname, ours, ref in zip(("dq", "dk", "dv"), grads, plain):
+            check(bool(torch.isfinite(ours).all()), f"non-finite {gname} in case {name}")
+            diff = (ours.float() - ref).abs().max().item()
+            errs[gname] = (diff, diff / ref.abs().max().item())
+        tol = BWD_REL_TOL[dtype]
+        ok = all(rel <= tol for _, rel in errs.values())
+        print(f"kernel bwd {name}: {b}x{s}x{h}/{hkv}x128 {str(dtype)[6:]} causal={causal} "
+              + " ".join(f"max|{n}-plain|={a:.3e} ({r:.2e} of max, tol {tol})"
+                         for n, (a, r) in errs.items())
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"flash_attn_bwd disagrees with its plain version in case {name}")
+        if name == "train_causal":
+            out = time_training_shape(q, k, v, do, o, lse, o_p, errs)
+        del q, k, v, do, o, lse, grads, f32, o_p, lse_p, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_training_shape(q, k, v, do, o, lse, o_plain, errs) -> dict:
+    """CUDA-event times of B1, B2 and B3 at the training shape, of their
+    plain versions, and of the library's attention forward and backward
+    (scaled_dot_product_attention, a yardstick the port never calls)."""
+    fwd_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True), iters=20)
+    fwd_plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, causal=True), iters=3)
+    call = flash._BwdLaunch(q, k, v, o, lse, do, True, q.shape[-1] ** -0.5)
+    dq_ms = time_ms(call.dq, iters=20)
+    dkv_ms = time_ms(call.dkv, iters=20)
+    bwd_plain_ms = time_ms(
+        lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), iters=3
+    )
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd_ms = time_ms(lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=True),
+                         iters=20)
+    lib_fwd_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot),
+        iters=20,
+    )
+    fwd_bound = attention_bound(q, k, causal=True)
+    bwd_bound = backward_bounds(q, k, causal=True)
+    fwd_err = (o.float() - o_plain).abs().max().item()
+    # The plain backward and the library's backward compute dq, dk and dv
+    # together: each is the time of the pair.
+    pair = dict(plain_ms=bwd_plain_ms, library_ms=lib_fwd_bwd_ms - lib_fwd_ms)
+    timing = {
+        "flash_attn_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                               library_ms=lib_fwd_ms, bound_ms=fwd_bound[0],
+                               bound_by=fwd_bound[1]),
+        "flash_attn_bwd_dq": dict(max_abs_err=errs["dq"][0], ms=dq_ms, **pair,
+                                  bound_ms=bwd_bound["dq"][0], bound_by=bwd_bound["dq"][1]),
+        "flash_attn_bwd_dkv": dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+                                   **pair, bound_ms=bwd_bound["dkv"][0],
+                                   bound_by=bwd_bound["dkv"][1]),
+    }
+    print(f"kernel timing at training shape: {json.dumps(timing)}", flush=True)
+    return timing
+
+
+def bench_config() -> TransformerConfig:
+    """bench.py's head configuration (bench.py:105-123 at seq 1024)."""
+    return TransformerConfig(
+        vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=16, d_ff=5504,
+        max_seq_len=TRAIN_SEQ, param_dtype=torch.bfloat16, remat=True,
+        remat_policy="qkv_attn",
+    )
+
+
+def launch_counts() -> tuple:
+    return (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+            flash.flash_attention_bwd.launches_dkv)
+
+
+def zero_launch_counts() -> None:
+    flash.flash_attention_fwd.launches = 0
+    flash.flash_attention_bwd.launches_dq = 0
+    flash.flash_attention_bwd.launches_dkv = 0
+
+
+def counted_step(ctx, state, batch, expect: tuple, what: str):
+    """One train step with the kernels' launch counts set to 0 just before
+    it and checked just after."""
+    zero_launch_counts()
+    state, metrics = ctx.train_step(state, batch)
+    got = launch_counts()
+    check(got == expect, f"{what}: launches (fwd, dq, dkv) = {got}, expected {expect}")
+    return state, metrics
+
+
+def clone_state(state) -> dict:
+    params = _tree_map(lambda t: t.detach().clone().requires_grad_(True), state["params"])
+    opt = state["opt_state"]
+    return {"params": params, "step": state["step"],
+            "opt_state": {"count": opt["count"], "mu": [t.clone() for t in opt["mu"]],
+                          "nu": [t.clone() for t in opt["nu"]]}}
+
+
+def phase_training(card: str) -> tuple:
+    cfg = bench_config()
+    ctx = LMTrainContext(cfg)
+    state = ctx.init_state(SEED)  # a seeded torch.Generator on the card
+    ref_state = clone_state(state)  # the optimizer updates in place
+    toks = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)
+    )
+    batch = ctx.make_batch({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    per_step = (cfg.n_layers,) * 3  # qkv_attn: B1, B2 and B3 once per layer
+    # remat_policy=None recomputes each layer, attention's forward included.
+    none_step = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    metrics = []
+    for i in range(WARMUP_STEPS):
+        state, m = counted_step(ctx, state, batch, per_step, f"warm-up step {i}")
+        metrics.append(m)
+    float(metrics[-1]["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        state, m = counted_step(ctx, state, batch, per_step, f"timed step {i}")
+        metrics.append(m)
+    # Each step updates the state the next reads, so reading the last loss
+    # means every step has run (as bench.py syncs).
+    float(metrics[-1]["loss"])
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses + grad_norms)), f"non-finite loss or grad norm: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {len(losses)} steps: {losses}")
+
+    none_ctx = LMTrainContext(dataclasses.replace(cfg, remat_policy=None))
+    state, m = counted_step(none_ctx, state, batch, none_step, "remat_policy=None step")
+    check(bool(torch.isfinite(m["loss"])), "non-finite loss with remat_policy=None")
+    profile = profile_device(lambda: ctx.train_step(state, batch))
+    del state
+    torch.cuda.empty_cache()
+
+    # The first step again from the initial state, with autograd through the
+    # plain reference attention (no remat needed for the math; None keeps
+    # one layer's [S, S] scores at a time).
+    ref_ctx = LMTrainContext(dataclasses.replace(cfg, attention_impl="reference",
+                                                 remat_policy=None))
+    _, ref = counted_step(ref_ctx, ref_state, batch, (0, 0, 0), "reference-attention step")
+    ref_loss, ref_gn = float(ref["loss"]), float(ref["grad_norm"])
+    loss_diff = abs(losses[0] - ref_loss)
+    gn_rel = abs(grad_norms[0] - ref_gn) / ref_gn
+    print(f"training check: first-step loss {losses[0]:.5f} vs reference attention "
+          f"{ref_loss:.5f} (|diff| {loss_diff:.2e}, tol {TRAIN_LOSS_TOL}); grad norm "
+          f"{grad_norms[0]:.5f} vs {ref_gn:.5f} (rel {gn_rel:.2e}, tol {TRAIN_GRAD_NORM_RTOL})",
+          flush=True)
+    check(loss_diff <= TRAIN_LOSS_TOL, "first-step loss disagrees with reference attention")
+    check(gn_rel <= TRAIN_GRAD_NORM_RTOL, "first-step grad norm disagrees with reference")
+
+    tokens_per_s = TIMED_STEPS * TRAIN_BATCH * TRAIN_SEQ / dt
+    n_params = cfg.num_params()
+    # bench.py's accounting: 6N flops per token, plus 12*L*d*seq for the
+    # score and value products (fwd and bwd) in mfu_attn_incl.
+    param_flops = 6 * n_params
+    attn_flops = 12 * cfg.n_layers * cfg.d_model * TRAIN_SEQ
+    training = {
+        "card": card,
+        "config": "bench.py head: d2048 L16 H16/16 Dh128 ff5504 V32000, bf16 params and "
+                  "compute, remat qkv_attn, batch 16 x seq 1024, dp on one card",
+        "n_params": n_params, "warmup_steps": WARMUP_STEPS, "timed_steps": TIMED_STEPS,
+        "timed_s": dt, "step_s": dt / TIMED_STEPS,
+        "train_tokens_per_s": tokens_per_s,
+        "mfu": param_flops * tokens_per_s / PEAK_BF16_FLOPS,
+        "mfu_attn_incl": (param_flops + attn_flops) * tokens_per_s / PEAK_BF16_FLOPS,
+        "peak_mem_gb": peak_gb, "losses": losses, "grad_norms": grad_norms,
+        "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
+        "launches_remat_none_step": dict(zip(("fwd", "dq", "dkv"), none_step)),
+        "reference_first_step": {"loss": ref_loss, "grad_norm": ref_gn},
+    }
+    print(json.dumps({"training_profile": profile}), flush=True)
+    return training, per_step
+
+
+def build_kernels() -> None:
+    """Build every kernel library, one nvcc per source, started together."""
+    names = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
+    errors = []
+
+    def build(name, source):
+        try:
+            _build.load_library(name, [source])
+        except Exception as e:  # noqa: BLE001 - reported and failed below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=item) for item in names.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors, f"build failed: {errors[:1]!r}")
+    check(not any(t.is_alive() for t in threads), "a build did not finish")
+    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"nvcc {n} {_build.build_seconds[n]:.1f} s" for n in names) + ")",
+          flush=True)
+    for name in names:
+        for line in _build.build_logs[name].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas: {line.strip()}")
 
 
 def main() -> int:
@@ -325,27 +611,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    _build.load_library("flash_attn_fwd", [flash.SOURCE])
-    print(f"build: flash_attn_fwd in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds['flash_attn_fwd']:.1f} s)", flush=True)
-    for line in _build.build_logs["flash_attn_fwd"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"ptxas: {line.strip()}")
-
+    build_kernels()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timing = phase_kernels(g)
     torch.cuda.empty_cache()
 
-    serving, launches = phase_serving(card)
+    serving, serve_launches = phase_serving(card)
     print(json.dumps({"serving": serving}), flush=True)
+    torch.cuda.empty_cache()
 
-    kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "ray_tpu/ops/pallas/flash_attention.py:55",
-        "launches": launches, **timing,
-    }]
+    train_timing = phase_backward(g)
+    training, train_launches = phase_training(card)
+    print(json.dumps({"training": training}), flush=True)
+
+    source = "ray_tpu_torch/csrc/"
+    kernels = [
+        {"name": "flash_attn_fwd", "route": "cuda", "source": source + flash.SOURCE,
+         "replaces": "ray_tpu/ops/pallas/flash_attention.py:55",
+         "launches": serve_launches,
+         "launches_by_path": {"serving": serve_launches, "train_step": train_launches[0]},
+         **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
+        {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
+         "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
+         "launches": train_launches[1],
+         "launches_by_path": {"serving": 0, "train_step": train_launches[1]},
+         **train_timing["flash_attn_bwd_dq"]},
+        {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
+         "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
+         "launches": train_launches[2],
+         "launches_by_path": {"serving": 0, "train_step": train_launches[2]},
+         **train_timing["flash_attn_bwd_dkv"]},
+    ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,14 @@
 // reference's f32 arithmetic; it is not on the serving path.
 // Not yet done (later work): cp.async/TMA double buffering, wgmma, exp2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bf16_mma.cuh"
 
 namespace {
+
+using flash::ld32;
+using flash::load_tile;
+using flash::mma_bf16;
+using flash::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
@@ -57,49 +60,6 @@ struct Params {
 };
 
 // ---------------------------------------------------------------- bf16 ----
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [r0, r0 + ROWS) of a [S, D] slice (row stride ss elements) into
-// shared memory with row stride LD, 16 bytes per thread per step; rows at or
-// past n are zero-filled.
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ss, int r0, int n) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(const Params p) {
@@ -123,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(const Params p) {
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   // q tile -> registers (staged through the k buffer).
-  load_tile<BQ, D, LD>(ks, qg, p.q_ss, q0, p.Sq);
+  load_tile<BQ, D, LD, kThreads>(ks, qg, p.q_ss, q0, p.Sq);
   __syncthreads();
   uint32_t qf[KC][4];
 #pragma unroll
@@ -147,8 +107,8 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(const Params p) {
 
   const int kv_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    load_tile<BK, D, LD>(ks, kg, p.k_ss, k0, p.Sk);
-    load_tile<BK, D, LD>(vs, vg, p.v_ss, k0, p.Sk);
+    load_tile<BK, D, LD, kThreads>(ks, kg, p.k_ss, k0, p.Sk);
+    load_tile<BK, D, LD, kThreads>(vs, vg, p.v_ss, k0, p.Sk);
     __syncthreads();
 
     // s = q k^T for this warp's 16 rows x BK columns.

@@ -1,7 +1,8 @@
-"""ray_tpu_torch.models: the port's model families (this slice: the
-Llama-family decoder's single-device forward)."""
+"""ray_tpu_torch.models: the port's model families (the Llama-family
+decoder on one device: its forward, and its training step)."""
 
-from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.models.convert import params_from_numpy, state_from_numpy
+from ray_tpu_torch.models.lm import LMTrainContext, cross_entropy_loss, default_optimizer
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
@@ -10,9 +11,13 @@ from ray_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "LMTrainContext",
     "TransformerConfig",
+    "cross_entropy_loss",
+    "default_optimizer",
     "forward",
     "init_params",
     "param_axes",
     "params_from_numpy",
+    "state_from_numpy",
 ]

@@ -13,17 +13,22 @@
   which picks the hand-written flash kernel on a CUDA device when the shapes
   are tile-aligned.
 
+- Remat (`config.remat`, `remat_policy`) wraps explicit segments of each
+  layer in `torch.utils.checkpoint` when autograd records, so the tensors
+  that live from the forward to the backward are those the JAX package's
+  checkpoint policies save (`_remat_layer`).
+
 Sharding rules, ring attention and pipelining belong to the multi-device
-slice of the port; remat to the training slice (it has no effect on a
-forward without autograd).
+slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import dot_product_attention
 from ray_tpu_torch.ops.rotary import apply_rope
@@ -44,8 +49,10 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     tie_embeddings: bool = False
     remat: bool = True
-    # Remat granularity (None, "attn" or "qkv_attn"), read by the training
-    # slice; a forward without autograd saves nothing either way.
+    # Remat granularity: None = full per-layer recompute (min memory);
+    # "attn" = keep the attention output (the attention forward is not rerun
+    # in the backward); "qkv_attn" = also keep post-RoPE q/k/v. A forward
+    # without autograd saves nothing either way.
     remat_policy: Optional[str] = None
     attention_impl: Optional[str] = None  # None=auto, see ops.attention
     # Microbatches per pipeline-stage schedule; pipelining belongs to the
@@ -187,12 +194,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
 
 
-def _layer(
+def _qkv(
     x: torch.Tensor,
     layer_params: Dict,
     positions: torch.Tensor,
     config: TransformerConfig,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The segment before attention: rms_norm, q/k/v projections, RoPE."""
     c = config
     dt = c.dtype
     # `.to(dt)` casts each weight at its use, as the JAX package does; it is
@@ -205,15 +213,93 @@ def _layer(
     vv = torch.einsum("bse,ehd->bshd", h, attn_p["wv"].to(dt))
     q = apply_rope(q, positions, theta=c.rope_theta)
     kk = apply_rope(kk, positions, theta=c.rope_theta)
-    attn = dot_product_attention(q, kk, vv, causal=True, impl=c.attention_impl)
-    x = x + torch.einsum("bshd,hde->bse", attn, attn_p["wo"].to(dt))
+    return q, kk, vv
 
+
+def _attend(
+    x: torch.Tensor,
+    layer_params: Dict,
+    positions: torch.Tensor,
+    config: TransformerConfig,
+) -> torch.Tensor:
+    q, kk, vv = _qkv(x, layer_params, positions, config)
+    return dot_product_attention(q, kk, vv, causal=True, impl=config.attention_impl)
+
+
+def _out_mlp(
+    x: torch.Tensor,
+    attn: torch.Tensor,
+    layer_params: Dict,
+    config: TransformerConfig,
+) -> torch.Tensor:
+    """The segment after attention: output projection, residual, rms_norm,
+    SwiGLU MLP, residual."""
+    c = config
+    dt = c.dtype
+    x = x + torch.einsum("bshd,hde->bse", attn, layer_params["attn"]["wo"].to(dt))
     mlp_p = layer_params["mlp"]
     h = rms_norm(x, layer_params["ln2"], c.norm_eps)
     gate = torch.einsum("bse,ef->bsf", h, mlp_p["w_gate"].to(dt))
     up = torch.einsum("bse,ef->bsf", h, mlp_p["w_up"].to(dt))
     ff = torch.nn.functional.silu(gate) * up
     return x + torch.einsum("bsf,fe->bse", ff, mlp_p["w_down"].to(dt))
+
+
+def _layer(
+    x: torch.Tensor,
+    layer_params: Dict,
+    positions: torch.Tensor,
+    config: TransformerConfig,
+) -> torch.Tensor:
+    return _out_mlp(x, _attend(x, layer_params, positions, config), layer_params, config)
+
+
+def _remat_policy(config: TransformerConfig) -> Optional[str]:
+    """Validated remat granularity, as the JAX package's `_remat_policy`
+    validates it."""
+    if config.remat_policy in (None, "attn", "qkv_attn"):
+        return config.remat_policy
+    raise ValueError(
+        f"unknown remat_policy {config.remat_policy!r}; "
+        "expected None, 'attn', or 'qkv_attn'"
+    )
+
+
+def _checkpoint(fn, *args):
+    # The layer draws no random numbers, so no RNG state is stashed.
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _remat_layer(
+    x: torch.Tensor,
+    layer_params: Dict,
+    positions: torch.Tensor,
+    config: TransformerConfig,
+    policy: Optional[str],
+) -> torch.Tensor:
+    """`_layer` under checkpoints whose boundaries keep what the JAX
+    package's policies save (`save_only_these_names`): the layer input
+    always; with "attn" also the attention output; with "qkv_attn" also the
+    post-RoPE q, k, v (and the flash kernel's lse, which the kernel path
+    saves with them, so its forward is not rerun). Everything else is
+    recomputed in the backward. Selective-checkpoint dispatch modes do not
+    see a ctypes kernel as one op, hence the explicit segments."""
+    if policy is None:
+        return _checkpoint(_layer, x, layer_params, positions, config)
+    if policy == "attn":
+        attn = _checkpoint(_attend, x, layer_params, positions, config)
+    else:
+        q, kk, vv = _checkpoint(_qkv, x, layer_params, positions, config)
+        attn = dot_product_attention(q, kk, vv, causal=True, impl=config.attention_impl)
+    return _checkpoint(_out_mlp, x, attn, layer_params, config)
+
+
+def _leaves(tree: Dict) -> List[torch.Tensor]:
+    """The tensors of a parameter tree, in insertion order."""
+    out = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out
 
 
 def _index_layer(tree: Dict, i: int) -> Dict:
@@ -231,7 +317,8 @@ def forward(
     mesh=None,
 ) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, vocab] (f32), on the device that
-    holds `params` and `tokens`."""
+    holds `params` and `tokens`. With `config.remat`, layers run under
+    checkpoints when autograd records (see `_remat_layer`)."""
     if rules is not None or mesh is not None:
         raise NotImplementedError(
             "sharding rules and meshes come with the multi-device slice of the port"
@@ -239,10 +326,18 @@ def forward(
     if config.pp_microbatches is not None:
         raise NotImplementedError("pipelining comes with the multi-device slice of the port")
     c = config
+    policy = _remat_policy(c) if c.remat else None
+    remat = c.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(params)
+    )
     x = params["embed"]["tokens"].to(c.dtype)[tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for i in range(c.n_layers):
-        x = _layer(x, _index_layer(params["layers"], i), positions, c)
+        layer_params = _index_layer(params["layers"], i)
+        if remat:
+            x = _remat_layer(x, layer_params, positions, c, policy)
+        else:
+            x = _layer(x, layer_params, positions, c)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     head = params["embed"]["tokens"].T if c.tie_embeddings else params["lm_head"]
     return torch.einsum("bse,ev->bsv", x, head.to(c.dtype)).to(torch.float32)

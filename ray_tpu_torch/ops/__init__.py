@@ -5,12 +5,17 @@ from ray_tpu_torch.ops.attention import (
     dot_product_attention,
     reference_attention,
 )
-from ray_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_fwd
+from ray_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
 
 __all__ = [
     "blockwise_attention",
     "dot_product_attention",
     "flash_attention",
+    "flash_attention_bwd",
     "flash_attention_fwd",
     "reference_attention",
 ]

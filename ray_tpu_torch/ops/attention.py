@@ -116,7 +116,8 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Dispatching attention entry point used by models/.
 
-    impl: None (auto) | "reference" | "blockwise" | "flash".
+    impl: None (auto) | "reference" | "blockwise" | "flash", or "pallas",
+    the JAX package's name for its kernel path, which takes the same kernels.
     Auto picks the hand-written flash kernel for tensors on a CUDA device when
     the shapes are tile-aligned (seq % 128 and head_dim % 128, the same rule
     the JAX package applies on a TPU), else the blockwise loop for long
@@ -138,7 +139,7 @@ def dot_product_attention(
         return reference_attention(q, k, v, causal=causal, scale=scale)
     if impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, scale=scale, block_size=block_size)
-    if impl == "flash":
+    if impl in ("flash", "pallas"):
         from ray_tpu_torch.ops.cuda.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=causal, scale=scale)

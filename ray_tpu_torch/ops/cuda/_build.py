@@ -1,9 +1,11 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
 Each library is compiled by `nvcc` from sources in this checkout into
-`ray_tpu_torch/_build/` (git-ignored), named by a hash of its sources and
-flags, so a changed source rebuilds and an unchanged one is reused. The
-libraries expose a plain C interface and are loaded with `ctypes`.
+`ray_tpu_torch/_build/` (git-ignored), named by a hash of its sources, the
+shared headers (`csrc/*.cuh`) and the flags, so a changed source rebuilds and
+an unchanged one is reused. Different libraries build in parallel when
+loaded from several threads. The libraries expose a plain C interface and
+are loaded with `ctypes`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per library
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to compile in this process (0.0 when it was
 # found already built), and what the compiler printed.
@@ -54,11 +57,13 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so
     if that file does not exist yet, then load it."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         paths = [CSRC_DIR / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

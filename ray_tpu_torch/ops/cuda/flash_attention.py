@@ -1,13 +1,18 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper (sm_90a)
-and its plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper (sm_90a), their
+plain PyTorch versions, and the autograd Function that joins them.
 
-Replaces the TPU kernel `_fwd_kernel`, launched by `_flash_fwd`
-(`ray_tpu/ops/pallas/flash_attention.py:55-145`). The source is
-`ray_tpu_torch/csrc/flash_attn_fwd.cu`; see its header for what bounds the
-kernel on the card and what the design does about it.
+Replaces the TPU kernels of `ray_tpu/ops/pallas/flash_attention.py`:
 
-For a tensor on the CPU the wrappers compute the plain version. For a tensor
-on a CUDA device they launch the kernel or raise; they never fall back.
+- B1, the forward `_fwd_kernel` launched by `_flash_fwd` (:55-145), in
+  `ray_tpu_torch/csrc/flash_attn_fwd.cu`;
+- B2 and B3, the backward `_bwd_dq_kernel` and `_bwd_dkv_kernel` launched by
+  `_flash_bwd` (:151-319), in `ray_tpu_torch/csrc/flash_attn_bwd.cu`;
+- `_FlashAttention` mirrors the `jax.custom_vjp` wiring (:329-355).
+
+Each source's header says what bounds its kernels on the card and what the
+design does about it. For tensors on the CPU the wrappers compute the plain
+versions. For tensors on a CUDA device they launch the kernels or raise;
+they never fall back.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ from ray_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 from ray_tpu_torch.ops.cuda._build import load_library
 
 SOURCE = "flash_attn_fwd.cu"
-HEAD_DIMS = (64, 128)  # head dims the kernel is instantiated for
+BWD_SOURCE = "flash_attn_bwd.cu"
+HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID_Y = 65535
-# Serving runs batches from several threads at once: the count is a
+# Serving runs batches from several threads at once: each count is a
 # read-modify-write, so it takes a lock.
 _count_lock = threading.Lock()
 
@@ -40,8 +46,22 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"n_heads={h} is not a multiple of n_kv_heads={k.shape[2]}")
 
 
+def _kernel_readable(t: torch.Tensor) -> bool:
+    """The kernels read [B, S, H, D] tensors by their strides: the last dim
+    must be contiguous and, for bf16 (read 16 bytes at a time), every row
+    16-byte aligned. Strides of size-1 dims are never used."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    elem = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (s * elem) % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
+    )
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the CUDA kernel does not take. Reads only shapes,
+    """Raise on anything the CUDA kernels do not take. Reads only shapes,
     types and strides, so it needs no card."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(
@@ -52,19 +72,26 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}/{k.device}/{v.device}")
-    # The grid's y dimension runs over q tiles (64 rows for bf16, 16 for f32).
-    q_tile = 64 if q.dtype == torch.bfloat16 else 16
-    if -(-q.shape[1] // q_tile) > _MAX_GRID_Y:
+    # The grid's y dimension runs over q tiles (forward, dq) or kv tiles
+    # (dk/dv): 64 rows for bf16, 16 for f32.
+    tile = 64 if q.dtype == torch.bfloat16 else 16
+    if -(-max(q.shape[1], k.shape[1]) // tile) > _MAX_GRID_Y:
         raise ValueError(f"sequence too long for the kernel's grid: {q.shape[1]}")
-    elem = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must be contiguous in its last dim")
-        # bf16 tiles are read 16 bytes at a time.
-        if q.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 != 0 or any((s * elem) % 16 for s in t.stride()[:3])
-        ):
-            raise ValueError(f"{name} rows must be 16-byte aligned for the bf16 kernel")
+        if not _kernel_readable(t):
+            raise ValueError(
+                f"{name} must be contiguous in its last dim, with 16-byte-aligned rows for bf16"
+            )
+
+
+def _visible(sq: int, sk: int, device) -> torch.Tensor:
+    """Causal mask [Sq, Sk]: key k is visible to query q when k <= q."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    return qpos >= kpos
+
+
+# -- B1: forward ------------------------------------------------------------
 
 
 def flash_attention_fwd_plain(
@@ -75,7 +102,7 @@ def flash_attention_fwd_plain(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: f32 scores over the whole
+    """Plain PyTorch version of the forward kernel: f32 scores over the whole
     sequence, the same masking and guards. Returns (o [B,S,H,D] in q's type,
     lse [B,H,S,1] f32)."""
     _check_shapes(q, k, v)
@@ -86,9 +113,7 @@ def flash_attention_fwd_plain(
     qf = q.to(torch.float32) * scale  # the scale is applied to q in f32
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32))
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-        logits = logits.masked_fill(qpos < kpos, NEG_INF)
+        logits = logits.masked_fill(~_visible(sq, k.shape[1], q.device), NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(
         logits <= NEG_INF / 2,
@@ -154,6 +179,175 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+# -- B2 and B3: backward ----------------------------------------------------
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels, by their formulas (no
+    autograd): f32 scores over the whole sequence, P = exp(q_s k^T - lse)
+    with masked entries 0, dS = P * (dO v^T - delta), dq = scale * dS k,
+    dk = dS^T q_s, dv = P^T dO, dk and dv summed over each GQA group.
+    Returns (dq, dk, dv) in q's, k's and v's types."""
+    _check_shapes(q, k, v)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    f32 = torch.float32
+    qs = q.to(f32) * scale
+    kf = _repeat_kv(k, h).to(f32)
+    vf = _repeat_kv(v, h).to(f32)
+    dof = do.to(f32)
+    # delta comes from the saved o, as the JAX package computes it.
+    delta = (dof * o.to(f32)).sum(-1).transpose(1, 2)[..., None]  # [B, H, Sq, 1]
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse)
+    if causal:
+        p = p.masked_fill(~_visible(sq, sk, q.device), 0.0)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    if hkv != h:
+        dk = dk.reshape(b, sk, hkv, h // hkv, d).sum(3)
+        dv = dv.reshape(b, sk, hkv, h // hkv, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_BWD_POINTERS = {"flash_attn_bwd_dq": 7, "flash_attn_bwd_dkv": 8}
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library("flash_attn_bwd", [BWD_SOURCE])
+    for name, n_ptr in _BWD_POINTERS.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptr
+            + [ctypes.c_int] * 7
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+    return lib
+
+
+class _BwdLaunch:
+    """One backward on the card: checks the inputs, computes delta,
+    allocates dq, dk and dv, and holds every tensor the kernels read while
+    they may run. `dq()` launches B2 and `dkv()` launches B3, each adding one
+    to its count."""
+
+    def __init__(self, q, k, v, o, lse, do, causal: bool, scale: float):
+        _check_kernel_inputs(q, k, v)
+        b, sq, h, d = q.shape
+        if o.shape != q.shape or do.shape != q.shape:
+            raise ValueError(
+                f"o {tuple(o.shape)} and dO {tuple(do.shape)} must match q {tuple(q.shape)}"
+            )
+        if do.dtype != q.dtype or do.device != q.device:
+            raise TypeError(f"dO must be {q.dtype} on {q.device}, got {do.dtype} on {do.device}")
+        if lse.shape != (b, h, sq, 1) or lse.dtype != torch.float32:
+            raise ValueError(f"lse must be f32 [B, H, Sq, 1], got {lse.dtype} {tuple(lse.shape)}")
+        # The gradient autograd hands over comes from the backward of the
+        # output projection's einsum and may have any strides: copy it where
+        # the kernels cannot read it (a fresh allocation, which is aligned
+        # even where the tensor is contiguous but its rows are not).
+        if not _kernel_readable(do):
+            do = do.clone(memory_format=torch.contiguous_format)
+        lse = lse.contiguous()
+        # delta = rowsum(dO * o) in f32 from the saved o, outside the
+        # kernels, as the JAX package computes it outside Pallas.
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Sq]
+        self.dq_out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        self.dk_out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        self.dv_out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        self._keep = (q, k, v, do, lse, delta)
+        self._strides = (ctypes.c_longlong * 21)(
+            *(s for t in (q, k, v, do, self.dq_out, self.dk_out, self.dv_out)
+              for s in t.stride()[:3])
+        )
+        self._inputs = tuple(t.data_ptr() for t in self._keep)
+        self._tail = (
+            _DTYPE_CODES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
+            ctypes.cast(self._strides, ctypes.c_void_p), scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        self._lib = _bwd_library()
+
+    def dq(self) -> None:
+        err = self._lib.flash_attn_bwd_dq(*self._inputs, self.dq_out.data_ptr(), *self._tail)
+        if err != 0:
+            raise RuntimeError(f"flash_attn_bwd_dq launch failed: CUDA error {err}")
+        with _count_lock:
+            flash_attention_bwd.launches_dq += 1
+
+    def dkv(self) -> None:
+        err = self._lib.flash_attn_bwd_dkv(
+            *self._inputs, self.dk_out.data_ptr(), self.dv_out.data_ptr(), *self._tail
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_attn_bwd_dkv launch failed: CUDA error {err}")
+        with _count_lock:
+            flash_attention_bwd.launches_dkv += 1
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward from the forward's saved (q, k, v, o, lse)
+    and the output's gradient dO, [B, S, H, D] layout, as the JAX package's
+    `_flash_bwd`. Returns (dq, dk, dv) in q's, k's and v's types; dk and dv
+    hold the sums over each GQA group."""
+    _check_shapes(q, k, v)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
+    call = _BwdLaunch(q, k, v, o, lse, do, causal, scale)
+    call.dq()
+    call.dkv()
+    return call.dq_out, call.dk_out, call.dv_out
+
+
+# Launches of B2 (dq) and B3 (dk/dv) made by this process.
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward B1, backward B2 and B3, as `_flash` with its custom VJP.
+    Saves (q, k, v, o, lse) only when autograd records."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -162,5 +356,7 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention forward, [B, S, H, D] layout; returns o."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    """Flash attention, [B, S, H, D] layout; returns o, with gradients to q,
+    k and v through the backward kernels."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, scale)

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch.models import TransformerConfig, init_params
+from ray_tpu_torch.models import LMTrainContext, TransformerConfig, init_params
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 
 REPO = Path(__file__).resolve().parents[1]
@@ -33,6 +33,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     files = sorted(Path(ray_tpu_torch.__file__).parent.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {"ray_tpu_torch/models/lm.py", "ray_tpu_torch/models/convert.py",
+            "ray_tpu_torch/ops/cuda/flash_attention.py"} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)
     ]
@@ -43,6 +46,13 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(TransformerConfig.tiny(), torch.Generator())
+
+
+def test_train_context_without_device_raises_when_no_card(monkeypatch):
+    """Training runs on the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMTrainContext(TransformerConfig.tiny())
 
 
 @pytest.mark.parametrize(
@@ -69,7 +79,51 @@ def test_wrapper_raises_on_devices_it_has_no_kernel_for():
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    q = torch.zeros((1, 16, 2, 64))
-    before = flash.flash_attention_fwd.launches
-    flash.flash_attention(q, q, q)
-    assert flash.flash_attention_fwd.launches == before
+    q = torch.zeros((1, 16, 2, 64), requires_grad=True)
+    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+              flash.flash_attention_bwd.launches_dkv)
+    flash.flash_attention(q, q, q).sum().backward()
+    assert q.grad is not None
+    assert (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+            flash.flash_attention_bwd.launches_dkv) == before
+
+
+def test_backward_wrapper_raises_on_devices_it_has_no_kernel_for():
+    q = torch.empty((1, 64, 2, 128), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 64, 1), device="meta")
+    before = flash.flash_attention_bwd.launches_dq
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash.flash_attention_bwd(q, q, q, q, lse, q)
+    assert flash.flash_attention_bwd.launches_dq == before
+
+
+@pytest.mark.parametrize("bad", ["lse_shape", "do_dtype", "o_shape"])
+def test_backward_input_check_raises_before_any_build(bad):
+    """What the backward kernels cannot take meets a check before the
+    library is built or a kernel launched (meta tensors: no card needed)."""
+    q = torch.empty((1, 64, 2, 128), dtype=torch.bfloat16, device="meta")
+    o, do = q, q
+    lse = torch.empty((1, 2, 64, 1), device="meta")
+    if bad == "lse_shape":
+        lse = torch.empty((1, 64, 2, 1), device="meta")
+    elif bad == "do_dtype":
+        do = torch.empty(q.shape, dtype=torch.float32, device="meta")
+    else:
+        o = torch.empty((1, 32, 2, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises((TypeError, ValueError)):
+        flash._BwdLaunch(q, q, q, o, lse, do, True, 128 ** -0.5)
+
+
+def test_kernel_readable_layouts():
+    """The gradient autograd hands the backward may have any strides: the
+    kernels read a permuted layout by its strides; a strided last dim or a
+    misaligned bf16 row is copied first."""
+    t = torch.empty((2, 64, 4, 128), dtype=torch.bfloat16)
+    assert flash._kernel_readable(t)
+    assert flash._kernel_readable(t.transpose(1, 2).contiguous().transpose(1, 2))
+    assert not flash._kernel_readable(torch.empty((2, 64, 4, 256), dtype=torch.bfloat16)[..., ::2])
+    assert not flash._kernel_readable(torch.empty((2 * 64 * 4 * 128 + 1,), dtype=torch.bfloat16)[1:]
+                                      .view(2, 64, 4, 128))
+    # Strides of size-1 dims are never used.
+    assert flash._kernel_readable(torch.empty((1, 64, 4, 128), dtype=torch.bfloat16)
+                                  .as_strided((1, 64, 4, 128), (3, 512, 128, 1)))

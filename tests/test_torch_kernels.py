@@ -8,10 +8,38 @@ no jax), and skip themselves where there is no CUDA card. On the card:
 (`--noconftest`: tests/conftest.py imports jax for the JAX package's tests.)
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from ray_tpu_torch.models import LMTrainContext, TransformerConfig, cross_entropy_loss, forward
 from ray_tpu_torch.ops.cuda import flash_attention as flash
+
+# Backward kernels against the plain backward in f32 from the same inputs,
+# as a share of the largest |gradient|: bf16 kernels round P and dS to bf16
+# (2^-9 relative) for their products and store bf16 (another 2^-9), summed
+# over up to 1024 terms of both signs, so 2e-2; f32 kernels differ by the
+# summation order only, so 1e-4.
+BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _qkv(b, sq, h, kv, d, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, sq, kv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, sq, kv, d), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _rel_err(ours, plain):
+    return ((ours.float() - plain).abs().max() / plain.abs().max()).item()
 
 
 @pytest.mark.gpu
@@ -25,8 +53,7 @@ def test_flash_kernel_matches_plain_on_card(dtype, sq, kv, causal):
     """The CUDA kernel against its plain version on the same card inputs.
     bf16: p is rounded to bf16 for the PV product and o is stored in bf16,
     so 2e-2 absolute; f32: 1e-4 (another summation order)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((2, sq, 16, 128), generator=g, device="cuda").to(dtype)
     k = torch.randn((2, sq, kv, 128), generator=g, device="cuda").to(dtype)
@@ -41,15 +68,138 @@ def test_flash_kernel_matches_plain_on_card(dtype, sq, kv, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,b,sq,h,kv,d,causal",
+    [(torch.bfloat16, 2, 1024, 16, 4, 128, True), (torch.bfloat16, 2, 1000, 8, 8, 128, True),
+     (torch.bfloat16, 1, 1000, 8, 2, 64, False), (torch.float32, 1, 200, 4, 2, 128, True),
+     (torch.float32, 1, 77, 4, 4, 64, False)],
+    ids=["bf16_gqa", "bf16_ragged", "bf16_d64_ragged_full", "f32_gqa", "f32_d64_ragged_full"],
+)
+def test_flash_bwd_kernels_match_plain_on_card(dtype, b, sq, h, kv, d, causal):
+    """B2 (dq) and B3 (dk, dv) against the plain backward computed in f32
+    from the same inputs, each launched once."""
+    _need_card()
+    q, k, v, do = _qkv(b, sq, h, kv, d, dtype)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+    before = (flash.flash_attention_bwd.launches_dq, flash.flash_attention_bwd.launches_dkv)
+    grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    after = (flash.flash_attention_bwd.launches_dq, flash.flash_attention_bwd.launches_dkv)
+    assert after == (before[0] + 1, before[1] + 1)
+    plain = flash.flash_attention_bwd_plain(
+        *(t.float() for t in (q, k, v, o)), lse, do.float(), causal=causal
+    )
+    for name, ours, ref in zip(("dq", "dk", "dv"), grads, plain):
+        assert ours.dtype == dtype and ours.shape == ref.shape, name
+        assert bool(torch.isfinite(ours).all()), name
+        assert _rel_err(ours, ref) <= BWD_REL_TOL[dtype], (name, _rel_err(ours, ref))
+
+
+@pytest.mark.gpu
+def test_bwd_reads_strided_and_copies_unreadable_grads():
+    """dO with another layout gives the same gradients: a [B,H,S,D]
+    transpose is read by its strides; a non-contiguous last dim, and
+    contiguous rows off 16-byte alignment, are copied first."""
+    _need_card()
+    q, k, v, do = _qkv(1, 256, 4, 4, 128, torch.bfloat16)
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    ref = flash.flash_attention_bwd(q, k, v, o, lse, do)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    stepped = torch.empty((*do.shape[:3], 2 * do.shape[3]), dtype=do.dtype, device="cuda")
+    stepped[..., ::2] = do
+    shifted = torch.empty(do.numel() + 1, dtype=do.dtype, device="cuda")[1:].view(do.shape)
+    shifted.copy_(do)
+    for layout in (strided, stepped[..., ::2], shifted):
+        for ours, want in zip(flash.flash_attention_bwd(q, k, v, o, lse, layout), ref):
+            # delta = rowsum(dO * o) may sum in another order for another
+            # layout; a misread stride would be off by the whole gradient.
+            assert _rel_err(ours, want.float()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_gradients_flow_through_the_kernel_path():
+    """`flash_attention` on CUDA tensors records a gradient: autograd runs
+    B2 and B3, and q, k and v get the plain backward's gradients."""
+    _need_card()
+    q, k, v, do = _qkv(2, 512, 8, 2, 128, torch.bfloat16, seed=1)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = flash.flash_attention_bwd.launches_dq
+    o = flash.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    assert flash.flash_attention_bwd.launches_dq == before + 1
+    with torch.no_grad():
+        o_p, lse = flash.flash_attention_fwd_plain(q.float(), k.float(), v.float())
+        plain = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o_p, lse, do.float())
+    for ours, ref in zip((dq, dk, dv), plain):
+        assert _rel_err(ours, ref) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sq,launched", [(1024, 1), (1000, 0)], ids=["aligned", "ragged"])
 def test_dispatcher_takes_kernel_on_aligned_card_shapes(sq, launched):
     """On a CUDA device the dispatcher picks the kernel when seq % 128 and
     head_dim % 128 are 0, as the JAX package picks Pallas on a TPU."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    _need_card()
     from ray_tpu_torch.ops.attention import dot_product_attention
 
     q = torch.randn((1, sq, 4, 128), device="cuda", dtype=torch.bfloat16)
     before = flash.flash_attention_fwd.launches
     dot_product_attention(q, q, q, causal=True)
     assert flash.flash_attention_fwd.launches == before + launched
+
+
+# A small bf16 model whose attention takes the kernels: head_dim 128.
+SMALL = TransformerConfig(
+    vocab_size=256, d_model=512, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=1024,
+    max_seq_len=1024, param_dtype=torch.bfloat16, attention_impl="flash",
+)
+
+
+def _small_state(cfg):
+    ctx = LMTrainContext(cfg)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1025), generator=g).cuda()
+    return ctx, ctx.init_state(0), tokens[:, :-1], tokens[:, 1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "remat,policy,fwd",
+    [(False, None, 2), (True, "qkv_attn", 2), (True, "attn", 4), (True, None, 4)],
+    ids=["no_remat", "qkv_attn", "attn", "full"],
+)
+def test_launch_counts_through_backward(remat, policy, fwd):
+    """One loss.backward() of a 2-layer model: B2 and B3 once per layer; B1
+    once per layer, twice where the policy reruns attention's forward."""
+    _need_card()
+    cfg = dataclasses.replace(SMALL, remat=remat, remat_policy=policy)
+    _, state, tokens, targets = _small_state(cfg)
+    counts = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+              flash.flash_attention_bwd.launches_dkv)
+    cross_entropy_loss(forward(state["params"], tokens, cfg), targets).backward()
+    assert all(p.grad is not None for p in state["params"]["layers"]["attn"].values())
+    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+             flash.flash_attention_bwd.launches_dkv)
+    assert tuple(a - c for a, c in zip(after, counts)) == (fwd, 2, 2)
+
+
+@pytest.mark.gpu
+def test_remat_policies_keep_less_memory_in_order():
+    """Device memory held from the forward to the backward: no remat keeps
+    every activation; qkv_attn the layer input, q, k, v, the attention
+    output and lse; attn the layer input and the attention output; None the
+    layer input only."""
+    _need_card()
+    kept = {}
+    for name, remat, policy in (("no_remat", False, None), ("qkv_attn", True, "qkv_attn"),
+                                ("attn", True, "attn"), ("none", True, None)):
+        cfg = dataclasses.replace(SMALL, n_layers=4, remat=remat, remat_policy=policy)
+        _, state, tokens, targets = _small_state(cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss = cross_entropy_loss(forward(state["params"], tokens, cfg), targets)
+        torch.cuda.synchronize()
+        kept[name] = torch.cuda.memory_allocated() - base
+        loss.backward()
+        del loss, state
+    assert kept["no_remat"] > kept["qkv_attn"] > kept["attn"] > kept["none"], kept
