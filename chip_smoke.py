@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`ray_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --forward-times   # only B1's times (main_forward_times)
 
 Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
@@ -9,11 +10,17 @@ printing the final line:
 1. device and build: needs a CUDA card; prints the card's name and power
    limit (nvidia-smi) and builds the flash-attention forward and backward
    kernels from ray_tpu_torch/csrc with nvcc, one nvcc per source, started
-   together;
-2. every kernel of the serving path against its plain PyTorch version on
-   the card, at the serving shape and at GQA, ragged and f32 cases, with
-   CUDA-event times of the kernel, the plain version and one PyTorch library
-   call computing the same function (a yardstick the port never calls);
+   together; prints each kernel's registers, shared memory and spills
+   (ptxas) and, where the toolkit has cuobjdump, its HGMMA (wgmma) and HMMA
+   (mma.sync) instruction counts, and fails if the wgmma kernels spill or
+   hold an mma.sync;
+2. the forward kernels against their plain PyTorch version on the card
+   (FWD_CASES: head_dim 128 and 64, S = 1, 64, 200, 1000 and 1024, GQA,
+   causal and not, bf16 and f32), with times at the serving shape of the
+   kernel, the plain version and one PyTorch library call computing the
+   same function (a yardstick the port never calls): CUDA events around
+   eager calls, as a caller waits, and CUDA-graph replays, the card alone,
+   with the host's time to issue a call (forward_times);
 3. the serving path at the full width of TransformerConfig.llama_1b (random
    weights from a seeded generator): 16 requests of 1024 tokens from 16
    threads through `@serve.batch(max_batch_size=8)`, the kernel's launch
@@ -21,9 +28,11 @@ printing the final line:
    reference attention; then one batch alone, host-timed, and a
    torch.profiler breakdown of one batch's device time by kernel;
 4. the backward kernels (dq, dk/dv) after the forward kernel against the
-   plain forward and backward in f32 from the same inputs, at the training
-   shape causal and full, GQA, ragged and f32 cases, with CUDA-event times of
-   each kernel, the plain backward and the library's backward;
+   plain forward and backward in f32 from the same inputs (BWD_CASES: the
+   training shape causal and full and with a permuted dO, head_dim 128 and
+   64, S = 1, 64, 200, 1000 and 1024, GQA, causal and not, bf16 and f32),
+   with CUDA-event times of each kernel, the plain backward and the
+   library's backward at the training shape;
 5. training at bench.py's head configuration (d2048 L16 H16/16 ff5504
    V32000, bf16 params, remat qkv_attn, batch 16 x 1024, strategy dp) through
    `LMTrainContext` with random weights from a seeded generator: 2 warm-up
@@ -39,6 +48,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -74,6 +86,12 @@ LOGIT_TOL = 0.25
 # over up to 1024 terms of both signs, so 2e-2; f32 kernels differ by the
 # summation order only, so 1e-4.
 BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# A gradient that is zero in exact arithmetic (dq and dk when every row sees
+# one key, as at S = 1: dS = P (dP - delta) with P = 1 and dP = delta) holds
+# only rounding noise, so its error is taken as a share of the case's
+# largest gradient instead; this floor is far below every other case's own
+# largest |gradient|.
+ZERO_GRAD_FLOOR = 1e-3
 # The first training step with the kernels against the same step with the
 # plain reference attention (autograd through it), both bf16 from one state.
 # The loss is a mean over 16,384 tokens of terms whose logits differ by up to
@@ -119,6 +137,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in a CUDA
+    graph, the replays timed with CUDA events, so that the host's time to
+    issue a call drops out; `fn` must launch on the current stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters=replays) / calls
+    del graph
+    return ms
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time to issue one call of `fn` (the card runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
 def attention_bound(q, k, causal: bool):
     """Least time for the card: bytes of q, k, v, o and lse each moved once,
     and the two products' operations over the visible (q, k) pairs."""
@@ -160,19 +208,69 @@ def rand_qkv(g, b, s, h, hkv, d, dtype):
     return q, k, v
 
 
+# (name, B, S, H, Hkv, head_dim, dtype, causal): every instantiation and edge
+# of the forward kernels, against the plain version.
+FWD_CASES = [
+    ("serving_causal", 8, 1024, 16, 16, 128, torch.bfloat16, True),
+    ("serving_full", 8, 1024, 16, 16, 128, torch.bfloat16, False),
+    ("gqa_16_4", 8, 1024, 16, 4, 128, torch.bfloat16, True),
+    ("gqa_16_4_full", 2, 1024, 16, 4, 128, torch.bfloat16, False),
+    ("ragged_1000", 2, 1000, 16, 16, 128, torch.bfloat16, True),
+    ("ragged_1000_full", 2, 1000, 16, 16, 128, torch.bfloat16, False),
+    ("s1", 2, 1, 16, 4, 128, torch.bfloat16, True),
+    ("s64", 2, 64, 16, 4, 128, torch.bfloat16, True),
+    ("s200_full", 2, 200, 16, 4, 128, torch.bfloat16, False),
+    ("d64_gqa", 2, 1024, 16, 4, 64, torch.bfloat16, True),
+    ("d64_ragged_1000_full", 2, 1000, 16, 16, 64, torch.bfloat16, False),
+    ("d64_s200", 2, 200, 16, 4, 64, torch.bfloat16, True),
+    ("f32_ragged_300", 2, 300, 16, 4, 128, torch.float32, True),
+    ("f32_d64_200_full", 2, 200, 16, 4, 64, torch.float32, False),
+]
+
+
+def forward_times(q, k, v) -> dict:
+    """B1 (causal) at these inputs beside the library forward: each one's
+    time by CUDA events around eager calls (`ms`, `library_ms`: what a
+    caller waits, so the host's time to issue a call where that is longer
+    than the card's), by CUDA-graph replays (`graph_ms`, `library_graph_ms`:
+    the card's time alone) and the host's time to issue a call (`host_us`,
+    `library_host_us`); the plain version's time; the bound."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel = lambda: flash.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    bound_ms, bound_by = attention_bound(q, k, causal=True)
+    return dict(
+        ms=time_ms(kernel, iters=20), graph_ms=graph_ms(kernel), host_us=host_us(kernel),
+        plain_ms=time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, causal=True), iters=3),
+        library_ms=time_ms(library, iters=20), library_graph_ms=graph_ms(library),
+        library_host_us=host_us(library), bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def main_forward_times() -> int:
+    """`python3 chip_smoke.py --forward-times`: forward_times at the serving
+    and the training shape, and nothing else, for the `ray_tpu_torch` beside
+    this script. A copy of the script in another checkout times that
+    checkout's wrapper and kernel by the same method, so that two trees can
+    be set side by side in one run on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for shape, b in (("serving", MAX_BATCH), ("training", TRAIN_BATCH)):
+        times[shape] = forward_times(*rand_qkv(g, b, PROMPT_LEN, 16, 16, 128, torch.bfloat16))
+    print(json.dumps({"forward_times": times}), flush=True)
+    return 0
+
+
 def phase_kernels(g) -> dict:
     """B1 against its plain version; returns the serving-shape numbers."""
-    cases = [
-        ("serving_causal", 8, 1024, 16, 16, torch.bfloat16, True),
-        ("serving_full", 8, 1024, 16, 16, torch.bfloat16, False),
-        ("gqa_16_4", 8, 1024, 16, 4, torch.bfloat16, True),
-        ("ragged_1000", 2, 1000, 16, 16, torch.bfloat16, True),
-        ("ragged_1000_full", 2, 1000, 16, 16, torch.bfloat16, False),
-        ("f32_ragged_300", 2, 300, 16, 4, torch.float32, True),
-    ]
     serving = None
-    for name, b, s, h, hkv, dtype, causal in cases:
-        q, k, v = rand_qkv(g, b, s, h, hkv, 128, dtype)
+    for name, b, s, h, hkv, d, dtype, causal in FWD_CASES:
+        q, k, v = rand_qkv(g, b, s, h, hkv, d, dtype)
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
         o_p, lse_p = flash.flash_attention_fwd_plain(
@@ -182,25 +280,12 @@ def phase_kernels(g) -> dict:
         err_lse = (lse - lse_p).abs().max().item()
         tol_o, tol_lse = TOL[dtype]
         ok = err_o <= tol_o and err_lse <= tol_lse and torch.isfinite(o).all().item()
-        print(f"kernel {name}: {b}x{s}x{h}/{hkv}x128 {str(dtype)[6:]} causal={causal} "
+        print(f"kernel {name}: {b}x{s}x{h}/{hkv}x{d} {str(dtype)[6:]} causal={causal} "
               f"max|o-plain|={err_o:.3e} (tol {tol_o}) max|lse-plain|={err_lse:.3e} "
               f"(tol {tol_lse}) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"flash_attn_fwd disagrees with its plain version in case {name}")
         if name == "serving_causal":
-            ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True), iters=20)
-            plain_ms = time_ms(
-                lambda: flash.flash_attention_fwd_plain(q, k, v, causal=True), iters=5
-            )
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True
-                ),
-                iters=20,
-            )
-            bound_ms, bound_by = attention_bound(q, k, causal=True)
-            serving = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            serving = dict(max_abs_err=err_o, **forward_times(q, k, v))
             print(f"kernel timing at serving shape: {json.dumps(serving)}", flush=True)
         del q, k, v, o, lse, o_p, lse_p
     return serving
@@ -298,7 +383,7 @@ def phase_serving(card: str) -> tuple:
     check(bool(agree[clear].all()), "next token disagrees with the reference attention")
 
     lat = [b[1] for b in server.batches]
-    solo = solo_batch_seconds(server, toks)
+    solo, solo_issue = solo_batch_seconds(server, toks)
     serving = {
         "card": card,
         "config": "llama_1b (d2048 L16 H16/16 Dh128 ff5504 V32000, bf16 compute)",
@@ -309,7 +394,7 @@ def phase_serving(card: str) -> tuple:
             b[0] * PROMPT_LEN / b[1] for b in server.batches
         ],
         "wall_s": wall, "prefill_tokens_per_s": N_REQUESTS * PROMPT_LEN / wall,
-        "solo_batch_latency_s": solo,
+        "solo_batch_latency_s": solo, "solo_batch_host_issue_s": solo_issue,
         "peak_mem_gb": peak_gb, "flash_launches": launches,
         "max_logit_diff_vs_reference": diff,
     }
@@ -322,21 +407,25 @@ def _forward(server, toks):
         return forward(server.params, toks, server.cfg)
 
 
-def solo_batch_seconds(server, toks, reps: int = 3) -> list:
-    """One batch's forward alone on the card, host clock to synchronize."""
-    out = []
+def solo_batch_seconds(server, toks, reps: int = 3) -> tuple:
+    """One batch's forward alone on the card, host clock to synchronize,
+    and the host's time to issue it (to the forward's return, the card
+    running behind): where the two are close, the host sets the latency."""
+    latency, issue = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _forward(server, toks)
+        issue.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
+        latency.append(time.perf_counter() - t0)
+    return latency, issue
 
 
-# Kernel names (as the profiler shows them) of the port's kernels.
-KERNEL_MARKERS = {"flash_attn_fwd": "fwd_bf16_kernel", "flash_attn_bwd_dq": "dq_bf16_kernel",
-                  "flash_attn_bwd_dkv": "dkv_bf16_kernel"}
+# The bf16 kernel of each of the port's kernels on the path, by the name in
+# its symbol (as the profiler, ptxas and cuobjdump show it).
+KERNEL_MARKERS = {"flash_attn_fwd": "fwd_wgmma_kernel", "flash_attn_bwd_dq": "dq_bf16_kernel",
+                  "flash_attn_bwd_dkv": "dkv_wgmma_kernel"}
 
 
 def profile_device(fn, top: int = 12) -> dict:
@@ -377,34 +466,58 @@ def profile_device(fn, top: int = 12) -> dict:
     }
 
 
+# (name, B, S, H, Hkv, head_dim, dtype, causal, dO permuted): every
+# instantiation and edge of the backward kernels, against the plain version.
+BWD_CASES = [
+    ("train_causal", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128, torch.bfloat16, True, False),
+    ("train_full", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128, torch.bfloat16, False, False),
+    ("train_strided_do", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128, torch.bfloat16, True, True),
+    ("gqa_16_4", TRAIN_BATCH, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, False),
+    ("gqa_16_4_full", 4, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, False, False),
+    ("ragged_1000", 2, 1000, 16, 16, 128, torch.bfloat16, True, False),
+    ("s1", 2, 1, 16, 4, 128, torch.bfloat16, True, False),
+    ("s64", 2, 64, 16, 4, 128, torch.bfloat16, True, False),
+    ("s200_full", 2, 200, 16, 4, 128, torch.bfloat16, False, False),
+    ("d64_gqa", 2, 1024, 16, 4, 64, torch.bfloat16, True, False),
+    ("d64_ragged_1000_full", 2, 1000, 16, 16, 64, torch.bfloat16, False, False),
+    ("f32_ragged_300", 2, 300, 16, 4, 128, torch.float32, True, False),
+    ("f32_d64_200_full", 2, 200, 16, 4, 64, torch.float32, False, False),
+]
+
+
+def grad_errors(grads, plain) -> dict:
+    """Largest |kernel - plain| of dq, dk and dv, and that as a share of the
+    gradient's largest |value| (floored at ZERO_GRAD_FLOOR of the case's
+    largest gradient)."""
+    big = max(ref.abs().max().item() for ref in plain)
+    errs = {}
+    for gname, ours, ref in zip(("dq", "dk", "dv"), grads, plain):
+        check(bool(torch.isfinite(ours).all()), f"non-finite {gname}")
+        diff = (ours.float() - ref).abs().max().item()
+        errs[gname] = (diff, diff / max(ref.abs().max().item(), ZERO_GRAD_FLOOR * big))
+    return errs
+
+
 def phase_backward(g) -> dict:
     """B1 then B2/B3 against the plain forward and backward in f32 from the
     same inputs; returns each kernel's numbers at the training shape."""
-    cases = [
-        ("train_causal", TRAIN_BATCH, TRAIN_SEQ, 16, 16, torch.bfloat16, True),
-        ("train_full", TRAIN_BATCH, TRAIN_SEQ, 16, 16, torch.bfloat16, False),
-        ("gqa_16_4", TRAIN_BATCH, TRAIN_SEQ, 16, 4, torch.bfloat16, True),
-        ("ragged_1000", 2, 1000, 16, 16, torch.bfloat16, True),
-        ("f32_ragged_300", 2, 300, 16, 4, torch.float32, True),
-    ]
     out = None
-    for name, b, s, h, hkv, dtype, causal in cases:
-        q, k, v = rand_qkv(g, b, s, h, hkv, 128, dtype)
-        do = torch.randn((b, s, h, 128), generator=g, device="cuda").to(dtype)
+    for name, b, s, h, hkv, d, dtype, causal, permuted in BWD_CASES:
+        q, k, v = rand_qkv(g, b, s, h, hkv, d, dtype)
+        do = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+        if permuted:  # [B, H, S, D] in memory, as autograd may hand it over
+            do = do.transpose(1, 2).contiguous().transpose(1, 2)
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
         grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
         f32 = [t.float() for t in (q, k, v, do)]
         o_p, lse_p = flash.flash_attention_fwd_plain(*f32[:3], causal=causal)
         plain = flash.flash_attention_bwd_plain(*f32[:3], o_p, lse_p, f32[3], causal=causal)
-        errs = {}
-        for gname, ours, ref in zip(("dq", "dk", "dv"), grads, plain):
-            check(bool(torch.isfinite(ours).all()), f"non-finite {gname} in case {name}")
-            diff = (ours.float() - ref).abs().max().item()
-            errs[gname] = (diff, diff / ref.abs().max().item())
+        errs = grad_errors(grads, plain)
         tol = BWD_REL_TOL[dtype]
         ok = all(rel <= tol for _, rel in errs.values())
-        print(f"kernel bwd {name}: {b}x{s}x{h}/{hkv}x128 {str(dtype)[6:]} causal={causal} "
+        print(f"kernel bwd {name}: {b}x{s}x{h}/{hkv}x{d} {str(dtype)[6:]} causal={causal} "
+              f"dO permuted={permuted} "
               + " ".join(f"max|{n}-plain|={a:.3e} ({r:.2e} of max, tol {tol})"
                          for n, (a, r) in errs.items())
               + f" {'ok' if ok else 'FAIL'}", flush=True)
@@ -417,11 +530,10 @@ def phase_backward(g) -> dict:
 
 
 def time_training_shape(q, k, v, do, o, lse, o_plain, errs) -> dict:
-    """CUDA-event times of B1, B2 and B3 at the training shape, of their
-    plain versions, and of the library's attention forward and backward
-    (scaled_dot_product_attention, a yardstick the port never calls)."""
-    fwd_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True), iters=20)
-    fwd_plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, causal=True), iters=3)
+    """Times of B1 (forward_times), and CUDA-event times of B2 and B3 at the
+    training shape, of their plain version, and of the library's attention
+    forward and backward (scaled_dot_product_attention, a yardstick the port
+    never calls)."""
     call = flash._BwdLaunch(q, k, v, o, lse, do, True, q.shape[-1] ** -0.5)
     dq_ms = time_ms(call.dq, iters=20)
     dkv_ms = time_ms(call.dkv, iters=20)
@@ -437,16 +549,13 @@ def time_training_shape(q, k, v, do, o, lse, o_plain, errs) -> dict:
         lambda: torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot),
         iters=20,
     )
-    fwd_bound = attention_bound(q, k, causal=True)
     bwd_bound = backward_bounds(q, k, causal=True)
     fwd_err = (o.float() - o_plain).abs().max().item()
     # The plain backward and the library's backward compute dq, dk and dv
     # together: each is the time of the pair.
     pair = dict(plain_ms=bwd_plain_ms, library_ms=lib_fwd_bwd_ms - lib_fwd_ms)
     timing = {
-        "flash_attn_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
-                               library_ms=lib_fwd_ms, bound_ms=fwd_bound[0],
-                               bound_by=fwd_bound[1]),
+        "flash_attn_fwd": dict(max_abs_err=fwd_err, **forward_times(q, k, v)),
         "flash_attn_bwd_dq": dict(max_abs_err=errs["dq"][0], ms=dq_ms, **pair,
                                   bound_ms=bwd_bound["dq"][0], bound_by=bwd_bound["dq"][1]),
         "flash_attn_bwd_dkv": dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
@@ -574,9 +683,93 @@ def phase_training(card: str) -> tuple:
     return training, per_step
 
 
-def build_kernels() -> None:
-    """Build every kernel library, one nvcc per source, started together."""
-    names = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
+LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
+# B1 and B3 must run on wgmma (HGMMA in SASS), not mma.sync (HMMA), and
+# spill nothing.
+WGMMA_KERNELS = (KERNEL_MARKERS["flash_attn_fwd"], KERNEL_MARKERS["flash_attn_bwd_dkv"])
+
+
+def _kernel_label(symbol: str) -> str:
+    """`fwd_wgmma_kernel<128>` from a mangled symbol such as
+    _ZN50_GLOBAL__N__..._cu_cd4330bb16fwd_wgmma_kernelILi128EEEvNS_9TmaParamsE:
+    the name is the length-prefixed identifier followed by its template
+    argument."""
+    for m in re.finditer(r"\d+", symbol):
+        for i in range(len(m.group())):  # a hash's digits may run into the length
+            n = int(m.group()[i:])
+            name = symbol[m.end():m.end() + n]
+            arg = re.match(r"ILi(\d+)E", symbol[m.end() + n:])
+            if name.endswith("_kernel") and arg:
+                return f"{name}<{arg.group(1)}>"
+    return symbol
+
+
+def ptxas_report() -> dict:
+    """Registers, static shared memory and spills of every kernel, from the
+    `-Xptxas -v` output of the builds."""
+    report = {}
+    for name in LIBRARIES:
+        label = None
+        for line in _build.build_logs[name].splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                label = _kernel_label(m.group(1))
+                report[label] = {}
+                continue
+            if label is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                report[label]["spill_stores"] = int(m.group(1))
+                report[label]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[label]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                report[label]["static_smem"] = int(sm.group(1)) if sm else 0
+    for d in flash.HEAD_DIMS:
+        for lib, fn, kernel in (("flash_attn_fwd", "flash_attn_fwd_smem_bytes", "fwd_wgmma_kernel"),
+                                ("flash_attn_bwd", "flash_attn_bwd_dkv_smem_bytes",
+                                 "dkv_wgmma_kernel")):
+            entry = report.setdefault(f"{kernel}<{d}>", {})
+            entry["dynamic_smem"] = getattr(_build._loaded[lib], fn)(d)
+    return report
+
+
+def sass_report() -> dict:
+    """Tensor-core instructions of every kernel in the built libraries'
+    SASS (HGMMA is wgmma, HMMA is mma.sync) and the register counts its
+    setmaxnreg instructions hand over (ptxas reports only the count at
+    entry). Empty where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: no cuobjdump in this toolkit; HGMMA not counted", flush=True)
+        return {}
+    report = {}
+    for name in LIBRARIES:
+        out = subprocess.run([tool, "-sass", str(_build.library_paths[name])],
+                             capture_output=True, text=True, timeout=300, check=True).stdout
+        label = None
+        for line in out.splitlines():
+            if "Function :" in line:
+                label = _kernel_label(line.split("Function :")[1].strip())
+                report[label] = {"HGMMA": 0, "HMMA": 0}
+            elif label is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        report[label][op] += 1
+                m = re.search(r"SETMAXREG\.(\w+)\S*\s[^;]*?(0x[0-9a-f]+)", line)
+                if m:
+                    report[label].setdefault("setmaxnreg", {})[m.group(1).lower()] = int(
+                        m.group(2), 16)
+    return report
+
+
+def build_kernels() -> dict:
+    """Build every kernel library, one nvcc per source, started together;
+    print and check each kernel's registers, shared memory and spills and,
+    where cuobjdump exists, its tensor-core instructions."""
     errors = []
 
     def build(name, source):
@@ -586,20 +779,29 @@ def build_kernels() -> None:
             errors.append(e)
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=build, args=item) for item in names.items()]
+    threads = [threading.Thread(target=build, args=item) for item in LIBRARIES.items()]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     check(not errors, f"build failed: {errors[:1]!r}")
     check(not any(t.is_alive() for t in threads), "a build did not finish")
-    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s ("
-          + ", ".join(f"nvcc {n} {_build.build_seconds[n]:.1f} s" for n in names) + ")",
+    print(f"build: {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"nvcc {n} {_build.build_seconds[n]:.1f} s" for n in LIBRARIES) + ")",
           flush=True)
-    for name in names:
-        for line in _build.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"ptxas: {line.strip()}")
+    ptxas, sass = ptxas_report(), sass_report()
+    for label in sorted(ptxas):
+        print(f"ptxas: {label}: {json.dumps(ptxas[label])}"
+              + (f" sass: {json.dumps(sass[label])}" if label in sass else ""), flush=True)
+    for kernel in WGMMA_KERNELS:
+        for d in flash.HEAD_DIMS:
+            label = f"{kernel}<{d}>"
+            check(ptxas[label].get("spill_stores") == 0 and ptxas[label].get("spill_loads") == 0,
+                  f"{label} spills: {ptxas[label]}")
+            if sass:
+                check(sass[label]["HGMMA"] > 0 and sass[label]["HMMA"] == 0,
+                      f"{label} is not all wgmma: {sass[label]}")
+    return {"ptxas": ptxas, "sass": sass}
 
 
 def main() -> int:
@@ -611,7 +813,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_kernels()
+    compiled = build_kernels()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timing = phase_kernels(g)
     torch.cuda.empty_cache()
@@ -628,20 +830,38 @@ def main() -> int:
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda", "source": source + flash.SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:55",
+         "design": "fwd_wgmma_kernel: warp-specialised, a producer warpgroup (setmaxnreg "
+                   "24) loads by TMA into 3-stage k/v rings with mbarriers; 2 consumer "
+                   "warpgroups (setmaxnreg 240) x 64 q rows, wgmma (S=qk^T from shared "
+                   "memory, O+=Pv with P from registers), online softmax in exp2 "
+                   "overlapping the next S, 128-row kv tiles, o out through shared memory "
+                   "by TMA store",
          "launches": serve_launches,
          "launches_by_path": {"serving": serve_launches, "train_step": train_launches[0]},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
+         "design": "dq_bf16_kernel: mma.sync m16n8k16, 4 warps x 16 q rows, 64-row k/v tiles "
+                   "through shared memory (not yet redesigned)",
          "launches": train_launches[1],
          "launches_by_path": {"serving": 0, "train_step": train_launches[1]},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
+         "design": "dkv_wgmma_kernel: warp-specialised, a producer warpgroup (setmaxnreg "
+                   "24) loads k/v once and q/dO through a 3-stage ring by TMA with mbarriers; "
+                   "2 consumer warpgroups (setmaxnreg 240) x 64 kv rows, lse/delta by "
+                   "cp.async a tile ahead, wgmma for S^T, dP^T (shared memory) and dV, dK "
+                   "(P^T, dS^T from registers)",
          "launches": train_launches[2],
          "launches_by_path": {"serving": 0, "train_step": train_launches[2]},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
+    for entry in kernels:
+        symbol = KERNEL_MARKERS[entry["name"]]
+        entry["compiled"] = {f"{symbol}<{d}>": {**compiled["ptxas"].get(f"{symbol}<{d}>", {}),
+                                                **compiled["sass"].get(f"{symbol}<{d}>", {})}
+                             for d in flash.HEAD_DIMS}
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -651,4 +871,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_forward_times() if sys.argv[1:] == ["--forward-times"] else main())

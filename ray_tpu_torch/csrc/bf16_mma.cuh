@@ -1,6 +1,7 @@
-// Building blocks shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): bf16 packing, one tensor-core product step
+// Building blocks of the mma.sync flash-attention kernel B2 (dq_bf16_kernel
+// in flash_attn_bwd.cu): bf16 packing, one tensor-core product step
 // (mma.sync m16n8k16, f32 accumulation) and the tile copy into shared memory.
+// The wgmma kernels (B1, B3) use hopper.cuh.
 //
 // Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 // - A, 16x16 row-major, 4 registers of two bf16: (row g, cols 2t..2t+1),
@@ -14,9 +15,7 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace flash {
 
@@ -24,10 +23,8 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;  // two floats, rounded
+
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   __nv_bfloat162 v;

@@ -23,30 +23,41 @@
 // and dS must stay on chip.
 //
 // What the design does about it:
-// - B2: one block per (b*h, 64-row q tile), 4 warps of 16 q rows; the q and
-//   dO fragments stay in registers for the whole kv loop, 64-row k and v
-//   tiles pass through shared memory, and the causal loop stops at the
-//   diagonal. The heaviest causal q tiles are scheduled first.
-// - B3: one block per (b*h_kv, 64-row kv tile), 4 warps of 16 kv rows; k and
-//   v stay in shared memory, 64-row q and dO tiles stream through it (70 KB
-//   of dynamic shared memory at D=128), and the causal loop starts at the
-//   diagonal. dk and dv are stored once, dk times the scale.
-// - Every product (q k^T, dO v^T, dS k, P^T dO, dS^T q) runs on the tensor
-//   cores with mma.sync m16n8k16 bf16 and f32 accumulation. The lse is known,
-//   so P needs no running max: each warp works through 16-column chunks of
-//   the score tile, and a chunk's P and dS go from the score accumulators
-//   straight into the next product as A fragments (bf16), never through
-//   shared or device memory.
+// - B2 (dq_bf16_kernel): one block per (b*h, 64-row q tile), 4 warps of 16
+//   q rows; the q and dO fragments stay in registers for the whole kv loop,
+//   64-row k and v tiles pass through shared memory, and the causal loop
+//   stops at the diagonal. The heaviest causal q tiles are scheduled first.
+//   Its products run on mma.sync m16n8k16 bf16 with f32 accumulation.
+// - B3 (dkv_wgmma_kernel): one block per (b*h_kv, 128-row kv tile), the
+//   blocks of one (b, h_kv) adjacent in the grid so that they share its q
+//   and dO through L2, heaviest causal tiles first; two warpgroups of 64
+//   kv rows each that keep dk and dv in registers, and a producer
+//   warpgroup (warp specialisation): its one working thread loads k and v
+//   once by TMA, then streams 64-row q and dO tiles through a 3-stage ring
+//   guarded by mbarriers, refilling a stage once every consumer warp has
+//   released it. The producer gives its registers back (setmaxnreg to 24)
+//   and the consumers take them (240 each), which dk, dv, S^T, dP^T and the
+//   A fragments need.
+//   Each warpgroup copies the next q tile's lse and delta into shared
+//   memory by cp.async while it works on this one. Per q tile: S^T = k q^T
+//   by wgmma from shared memory (K-major);
+//   P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), no running max since
+//   lse is known; dP^T = v dO^T and dv += P^T dO issued together; then
+//   dS^T = P^T (dP^T - delta) while dv runs, and dk += dS^T q. P^T and dS^T
+//   go to bf16 A registers straight from the accumulators, and dO and q are
+//   read transposed (MN-major) from the same shared tiles. The causal loop
+//   starts at the diagonal; a warpgroup skips a tile wholly above its rows.
+//   GQA: the block loops over the group's q heads (deterministic, no
+//   atomics). dk takes the scale once at the store.
 // - The q scale is applied to the f32 scores after the bf16 product, as in
-//   the forward kernel; dq takes the scale once at the end, and B3's dk
-//   takes it once at the end for q_s.
+//   the forward kernel; dq takes the scale once at the end.
 // - Ragged rows and columns are masked by index, never by the -1e30 trick:
 //   rows past Sq have no lse, columns past Sk hold no data.
 // f32 inputs take scalar kernels (no tensor cores) that keep the
 // reference's f32 arithmetic; they are not on the training path.
-// Not yet done (later work): cp.async/TMA pipelining, ldmatrix, wgmma.
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -207,141 +218,235 @@ __global__ void __launch_bounds__(kThreads) dq_bf16_kernel(const Params p) {
   }
 }
 
-// Dynamic shared memory of dkv_bf16_kernel: k, v, q and dO tiles of 64 rows
-// (row stride D + 8), then lse and delta of the q tile.
-constexpr int dkv_bf16_smem(int D) { return 4 * 64 * (D + 8) * 2 + 2 * 64 * 4; }
+constexpr int kDkvBN = 128;  // kv rows per block: two warpgroups of 64
+constexpr int kDkvBM = 64;   // q rows per streamed tile
+constexpr int kDkvStages = 3;
+// Rows of the q, k, v and dO boxes, in the order of the wrapper's maps.
+constexpr int kDkvBoxRows[4] = {kDkvBM, kDkvBN, kDkvBN, kDkvBM};
 
-// B3: dk and dv for one (b*h_kv, 64-row kv tile).
+struct DkvTmaParams {
+  CUtensorMap q, k, v, dout;
+  const float* lse;    // [B, H, Sq]
+  const float* delta;  // [B, H, Sq]
+  void* dk;
+  void* dv;
+  int H, Hkv, Sq, Sk;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Dynamic shared memory of dkv_wgmma_kernel: k and v tiles, then the q and
+// dO tiles of each stage, plus room to align the start to 1024 bytes.
+constexpr int dkv_smem_bytes(int D) {
+  return 2 * kDkvBN * D * 2 + kDkvStages * 2 * kDkvBM * D * 2 + 1024;
+}
+
+// B3: dk and dv for one (b*h_kv, 128-row kv tile).
 template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_bf16_kernel(const Params p) {
-  constexpr int BK = 64, BQ = 64, LD = D + 8;
-  constexpr int KC = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + BK * LD;
-  __nv_bfloat16* qs = vs + BK * LD;
-  __nv_bfloat16* dos = qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * LD);
-  float* delta_s = lse_s + BQ;
+__global__ void __launch_bounds__(hopper::kWsThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ DkvTmaParams p) {
+  using namespace hopper;
+  constexpr int BN = kDkvBN, BM = kDkvBM, ST = kDkvStages;
+  constexpr int KV_BYTES = BN * D * 2;  // k or v
+  constexpr int Q_BYTES = BM * D * 2;   // one q or dO tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_full[ST], bar_empty[ST];
+  // lse (natural log) and delta of a q tile, per warpgroup, double buffered.
+  __shared__ __align__(16) float stats[2][2][2][BM];  // [warpgroup][buffer][lse, delta][row]
+  uint8_t* const ks = smem_raw + align_1024(smem_u32(smem_raw));
+  uint8_t* const vs = ks + KV_BYTES;
+  uint8_t* const stages = vs + KV_BYTES;  // q then dO, per stage
 
-  const int bhk = blockIdx.x;
+  // Blocks of one (b, h_kv) are adjacent, so they run together and share
+  // its q and dO through L2; within them, the first kv tiles see the most
+  // causal q tiles and come first.
+  const int kv_tiles = (p.Sk + BN - 1) / BN;
+  const int bhk = blockIdx.x / kv_tiles;
   const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
   const int group = p.H / p.Hkv;
-  const int k0 = blockIdx.y * BK;  // causal: the first kv tiles see the most q tiles
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;  // this warp's first row in the kv tile
+  const int k0 = (blockIdx.x % kv_tiles) * BN;
+  const int q_begin = p.causal ? (k0 / BM) * BM : 0;
+  const int q_tiles = p.Sq > q_begin ? (p.Sq - q_begin + BM - 1) / BM : 0;
+  const int n_tiles = group * q_tiles;  // the group's q heads, q tiles within each
 
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<BK, D, LD, kThreads>(ks, kg, p.k_ss, k0, p.Sk);
-  load_tile<BK, D, LD, kThreads>(vs, vg, p.v_ss, k0, p.Sk);
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  }
-
-  const int krow0 = k0 + wr + g;  // this thread's kv rows: krow0, krow0 + 8
-  const bool rows_ragged = k0 + wr + 16 > p.Sk;
-  const int q_begin = p.causal ? (k0 / BQ) * BQ : 0;
-  for (int hq = hk * group; hq < (hk + 1) * group; ++hq) {
-    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const __nv_bfloat16* dog =
-        static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-    const long long stat0 = ((long long)b * p.H + hq) * p.Sq;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += BQ) {
-      __syncthreads();  // the previous q tile's readers are done
-      load_tile<BQ, D, LD, kThreads>(qs, qg, p.q_ss, q0, p.Sq);
-      load_tile<BQ, D, LD, kThreads>(dos, dog, p.do_ss, q0, p.Sq);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < p.Sq;
-        lse_s[i] = in ? p.lse[stat0 + q0 + i] : 0.f;
-        delta_s[i] = in ? p.delta[stat0 + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      for (int j = 0; j < BQ; j += 16) {
-        const int c0 = q0 + j;  // first q row of this chunk
-        if (c0 >= p.Sq) break;
-        // Every q row of the chunk precedes every kv row of this warp.
-        if (p.causal && c0 + 15 < k0 + wr) continue;
-        // s^T = k q^T and dp^T = v dO^T for 16 kv rows x 16 q columns.
-        float s[2][4], dp[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-        }
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          uint32_t ka[4], va[4];
-          load_a<LD>(ka, ks, wr, kc * 16, g, t);
-          load_a<LD>(va, vs, wr, kc * 16, g, t);
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            uint32_t b0, b1;
-            load_b_nk<LD>(b0, b1, qs, j + n * 8, kc * 16, g, t);
-            mma_bf16(s[n], ka, b0, b1);
-            load_b_nk<LD>(b0, b1, dos, j + n * 8, kc * 16, g, t);
-            mma_bf16(dp[n], va, b0, b1);
-          }
-        }
-        const bool edge = rows_ragged || c0 + 16 > p.Sq || (p.causal && c0 < k0 + wr + 15);
-        // p^T into s, ds^T = p^T * (dp^T - delta) into dp.
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int jj = j + n * 8 + t * 2 + (e & 1);  // q row within the tile
-            float pe = expf(s[n][e] * p.scale - lse_s[jj]);
-            if (edge) {
-              const int qrow = q0 + jj;
-              const int krow = krow0 + (e >> 1) * 8;
-              if (qrow >= p.Sq || krow >= p.Sk || (p.causal && qrow < krow)) pe = 0.f;
-            }
-            s[n][e] = pe;
-            dp[n][e] = pe * (dp[n][e] - delta_s[jj]);
-          }
-        }
-        // dv += p^T dO and dk += ds^T q: the chunk's 16 q rows are the depth.
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(s[0][0], s[0][1]);
-        pa[1] = pack_bf16(s[0][2], s[0][3]);
-        pa[2] = pack_bf16(s[1][0], s[1][1]);
-        pa[3] = pack_bf16(s[1][2], s[1][3]);
-        da[0] = pack_bf16(dp[0][0], dp[0][1]);
-        da[1] = pack_bf16(dp[0][2], dp[0][3]);
-        da[2] = pack_bf16(dp[1][0], dp[1][1]);
-        da[3] = pack_bf16(dp[1][2], dp[1][3]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t b0, b1;
-          load_b_kn<LD>(b0, b1, dos, j, n * 8, g, t);
-          mma_bf16(dv[n], pa, b0, b1);
-          load_b_kn<LD>(b0, b1, qs, j, n * 8, g, t);
-          mma_bf16(dk[n], da, b0, b1);
-        }
-      }
+  // full: the tile's bytes have landed; empty: lane 0 of each of the 8
+  // consumer warps is done with it.
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&bar_full[st], 1);
+      mbar_init(&bar_empty[st], 8);
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Producer warpgroup: one thread loads k and v, then q and dO tile `it`
+  // into stage it % ST as soon as both consumers have released tile it - ST.
+  // It alone waits with a timeout (see mbar_wait_or_trap).
+  if (warpgroup() == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bar_kv, 2 * KV_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(ks + c * BN * 128, &p.k, &bar_kv, c * 64, k0, hk, b);
+        tma_load_4d(vs + c * BN * 128, &p.v, &bar_kv, c * 64, k0, hk, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % ST;
+        const int hq = hk * group + it / q_tiles;
+        const int q0 = q_begin + (it % q_tiles) * BM;
+        uint8_t* const dst = stages + st * 2 * Q_BYTES;
+        if (it >= ST) mbar_wait_or_trap(&bar_empty[st], ((it / ST) & 1) ^ 1);  // it - ST released
+        mbar_expect_tx(&bar_full[st], 2 * Q_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(dst + c * BM * 128, &p.q, &bar_full[st], c * 64, q0, hq, b);
+          tma_load_4d(dst + Q_BYTES + c * BM * 128, &p.dout, &bar_full[st], c * 64, q0, hq, b);
+        }
+      }
+      // Until the consumers have used every tile, trapping if they never do.
+      mbar_wait_or_trap(&bar_kv, 0);
+      for (int it = max(0, n_tiles - ST); it < n_tiles; ++it)
+        mbar_wait_or_trap(&bar_empty[it % ST], (it / ST) & 1);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // Consumer warpgroup cw owns kv rows [kv0, kv0 + 64).
+  const int cw = warpgroup() - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, c4 = lane % 4;
+  const int kv0 = k0 + 64 * cw;
+  const int krow0 = kv0 + 16 * warp + g;  // this thread's kv rows: krow0, krow0 + 8
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const uint32_t k_base = smem_u32(ks) + cw * 64 * 128;
+  const uint32_t v_base = smem_u32(vs) + cw * 64 * 128;
+  // Each warpgroup copies the lse and delta of q tile `it` into its buffer
+  // it % 2, a tile ahead (thread t: row t % 64 of lse, then of delta);
+  // rows past Sq read as zeros.
+  auto fetch_stats = [&](int it) {
+    const int hq = hk * group + it / q_tiles;
+    const int row = q_begin + (it % q_tiles) * BM + t % BM;
+    const float* src = (t < BM ? p.lse : p.delta) + ((long long)b * p.H + hq) * p.Sq;
+    cp_async_4(&stats[cw][it % 2][t / BM][t % BM], src + (row < p.Sq ? row : 0),
+               row < p.Sq ? 4 : 0);
+  };
+  if (n_tiles > 0) fetch_stats(0);
+  mbar_wait(&bar_kv, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % ST;
+    const int q0 = q_begin + (it % q_tiles) * BM;
+    const uint32_t q_base = smem_u32(stages + st * 2 * Q_BYTES), do_base = q_base + Q_BYTES;
+    // This tile's lse and delta have landed for the whole warpgroup, which
+    // is also done reading the other buffer: fetch the next tile's into it.
+    cp_async_wait();
+    named_barrier(1 + cw, 128);
+    if (it + 1 < n_tiles) fetch_stats(it + 1);
+    const float* const lse_s = stats[cw][it % 2][0];
+    const float* const delta_s = stats[cw][it % 2][1];
+    mbar_wait(&bar_full[st], (it / ST) & 1);
+
+    // Every q row of the tile precedes every kv row of this warpgroup.
+    if (!(p.causal && q0 + BM - 1 < kv0)) {
+      // S^T = k q^T: 64 kv rows x 64 q columns.
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32;  // 16-deep step inside a 64-column box
+        Wgmma<64>::ss<0>(sc, desc_sw128(k_base + (kk / 4) * BN * 128 + step, 16, 1024),
+                         desc_sw128(q_base + (kk / 4) * BM * 128 + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // P^T in place, and packed to bf16 A fragments (16 q columns a step).
+      const bool edge = q0 + BM > p.Sq || (p.causal && q0 < kv0 + 63);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        // This thread's q columns 8 (i / 4) + 2 c4 and the next one.
+        const float2 lse = *reinterpret_cast<const float2*>(lse_s + 8 * (i / 4) + 2 * c4);
+        float p0 = exp2f(fmaf(sc[i], p.scale_log2, -lse.x * 1.4426950408889634f));
+        float p1 = exp2f(fmaf(sc[i + 1], p.scale_log2, -lse.y * 1.4426950408889634f));
+        if (edge) {
+          const int qrow = q0 + 8 * (i / 4) + 2 * c4, krow = krow0 + 8 * ((i / 2) & 1);
+          if (qrow >= p.Sq || (p.causal && qrow < krow)) p0 = 0.f;
+          if (qrow + 1 >= p.Sq || (p.causal && qrow + 1 < krow)) p1 = 0.f;
+        }
+        sc[i] = p0;
+        sc[i + 1] = p1;
+        // Accumulator pair i / 2 is register (i / 2) % 4 of step i / 8.
+        pa[i / 8][(i / 2) % 4] = pack_bf16(p0, p1);
+      }
+
+      // dP^T = v dO^T and dv += P^T dO: dO read transposed (MN-major), 16 q
+      // rows are 2048 bytes, 64-column boxes BM * 128 bytes apart.
+      float dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32;
+        Wgmma<64>::ss<0>(dp, desc_sw128(v_base + (kk / 4) * BN * 128 + step, 16, 1024),
+                         desc_sw128(do_base + (kk / 4) * BM * 128 + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        Wgmma<D>::template rs<1>(dv, pa[kk], desc_sw128(do_base + kk * 2048, BM * 128, 1024), 1);
+      }
+      wgmma_commit();
+      fence_regs(dv);
+      wgmma_wait<1>();  // dP^T has landed; the dv product may still run
+      fence_regs(dp);
+
+      // dS^T = P^T (dP^T - delta), packed; then dk += dS^T q, q transposed.
+      uint32_t da[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const float2 del = *reinterpret_cast<const float2*>(delta_s + 8 * (i / 4) + 2 * c4);
+        da[i / 8][(i / 2) % 4] =
+            pack_bf16(sc[i] * (dp[i] - del.x), sc[i + 1] * (dp[i + 1] - del.y));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        Wgmma<D>::template rs<1>(dk, da[kk], desc_sw128(q_base + kk * 2048, BM * 128, 1024), 1);
+      }
+      wgmma_commit();
+      fence_regs(dk);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);  // read by the products until here
+      fence_regs(da);
+    }
+    if (lane == 0) mbar_arrive(&bar_empty[st]);
   }
 
   __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
   __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = krow0 + i * 8;
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow0 + 8 * r;
     if (row < p.Sk) {
-      __nv_bfloat16* dko = dkg + (long long)row * p.dk_ss + t * 2;
-      __nv_bfloat16* dvo = dvg + (long long)row * p.dv_ss + t * 2;
+      __nv_bfloat16* dko = dkg + (long long)row * p.dk_ss + 2 * c4;
+      __nv_bfloat16* dvo = dvg + (long long)row * p.dv_ss + 2 * c4;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         *reinterpret_cast<uint32_t*>(dko + n * 8) =
-            pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvo + n * 8) = pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+            pack_bf16(dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvo + n * 8) =
+            pack_bf16(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
       }
     }
   }
@@ -537,11 +642,14 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // Both entry points launch on `stream` and return cudaGetLastError() right
-// after the launch (0 on success), or cudaErrorInvalidValue for a type or
-// head dim the kernels are not built for. dtype: 0 = bf16, 1 = f32. q, k,
-// v, dO, dq, dk and dv are [B, S, H, D] with the element strides in
-// `strides` (21 values: q, k, v, dO, dq, dk, dv, each batch, seq, head);
-// lse and delta are contiguous f32 [B, H, Sq].
+// after the launch (0 on success), hopper::kEncodeFailed when the CUDA driver
+// refuses a tensor map, or cudaErrorInvalidValue for a type, head dim or
+// layout the kernels are not built for. dtype: 0 = bf16, 1 = f32. q, k, v,
+// dO, dq, dk and dv are [B, S, H, D] with the element strides in `strides`
+// (21 values: q, k, v, dO, dq, dk, dv, each batch, seq, head); lse and
+// delta are contiguous f32 [B, H, Sq]. B3 in bf16 also takes `maps`:
+// hopper::kMapArgs values for each of q, k, v and dO (dims, byte strides,
+// box), as the wrapper computes them, then the block count; f32 ignores it.
 
 // B2: writes dq.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -569,12 +677,43 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
 }
 
 template <int D>
-static int launch_dkv_bf16(const Params& p, dim3 grid, cudaStream_t s) {
-  constexpr int smem = dkv_bf16_smem(D);
-  const cudaError_t err = cudaFuncSetAttribute(
-      dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+static int launch_dkv_bf16(const Params& a, const long long* maps, cudaStream_t stream) {
+  using namespace hopper;
+  // maps: q, k, v, dO, kMapArgs values each, then the block count; the
+  // boxes must be the ones the kernel reads (kDkvBoxRows) and the count the
+  // grid it decodes.
+  const long long blocks = (long long)a.B * a.Hkv * ((a.Sk + kDkvBN - 1) / kDkvBN);
+  if (maps == nullptr || !boxes_match(maps, kDkvBoxRows, 4, D) || maps[4 * kMapArgs] != blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DkvTmaParams p;
+  if (encode_bf16_map(&p.q, a.q, maps) || encode_bf16_map(&p.k, a.k, maps + kMapArgs) ||
+      encode_bf16_map(&p.v, a.v, maps + 2 * kMapArgs) ||
+      encode_bf16_map(&p.dout, a.dout, maps + 3 * kMapArgs)) {
+    return kEncodeFailed;
+  }
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dk = a.dk;
+  p.dv = a.dv;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.dk_sb = a.dk_sb;
+  p.dk_ss = a.dk_ss;
+  p.dk_sh = a.dk_sh;
+  p.dv_sb = a.dv_sb;
+  p.dv_ss = a.dv_ss;
+  p.dv_sh = a.dv_sh;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  constexpr int smem = dkv_smem_bytes(D);
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = set_smem_once(dkv_wgmma_kernel<D>, smem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_bf16_kernel<D><<<grid, kThreads, smem, s>>>(p);
+  dkv_wgmma_kernel<D><<<(unsigned)blocks, kWsThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,16 +721,15 @@ static int launch_dkv_bf16(const Params& p, dim3 grid, cudaStream_t s) {
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   int dtype, int B, int H, int Hkv, int Sq, int Sk, int D,
-                                  const long long* strides, float scale, int causal,
-                                  void* stream) {
+                                  const long long* strides, const long long* maps, float scale,
+                                  int causal, void* stream) {
   if (B == 0 || Hkv == 0 || Sk == 0) return 0;
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, Sq, Sk,
                                strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bk = dtype == 0 ? 64 : 16;
-  const dim3 grid(B * Hkv, (Sk + bk - 1) / bk);
-  if (dtype == 0 && D == 128) return launch_dkv_bf16<128>(p, grid, s);
-  if (dtype == 0 && D == 64) return launch_dkv_bf16<64>(p, grid, s);
+  if (dtype == 0 && D == 128) return launch_dkv_bf16<128>(p, maps, s);
+  if (dtype == 0 && D == 64) return launch_dkv_bf16<64>(p, maps, s);
+  const dim3 grid(B * Hkv, (Sk + 15) / 16);
   if (dtype == 1 && D == 128) {
     dkv_f32_kernel<128><<<grid, kThreads, 0, s>>>(p);
   } else if (dtype == 1 && D == 64) {
@@ -600,4 +738,15 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the bf16 dk/dv kernel at head dim D, for reports.
+extern "C" int flash_attn_bwd_dkv_smem_bytes(int D) { return dkv_smem_bytes(D); }
+
+// What the wrapper builds the bf16 dk/dv kernel's maps and grid from: the
+// rows of the q, k, v and dO boxes (the second is the kv tile of a block),
+// then the boxes' widest column count.
+extern "C" void flash_attn_bwd_dkv_tiles(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = kDkvBoxRows[i];
+  out[4] = hopper::kBoxCols;
 }

@@ -34,9 +34,12 @@ _lock = threading.Lock()  # guards _locks
 _locks: Dict[str, threading.Lock] = {}  # one per library
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to compile in this process (0.0 when it was
-# found already built), and what the compiler printed.
+# found already built), what the compiler printed (kept beside the library
+# as lib<name>-<hash>.log, and read back when the library is reused), and
+# the file loaded.
 build_seconds: Dict[str, float] = {}
 build_logs: Dict[str, str] = {}
+library_paths: Dict[str, Path] = {}
 
 
 def _nvcc() -> str:
@@ -68,8 +71,9 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
             digest.update(p.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        log = target.with_suffix(".log")
         build_seconds[name] = 0.0
-        build_logs[name] = ""
+        build_logs[name] = log.read_text() if log.exists() else ""
         if not target.exists():
             t0 = time.perf_counter()
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -82,9 +86,11 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
                     f"nvcc failed building {name} ({proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
                 )
+            build_logs[name] = proc.stdout + proc.stderr
+            log.write_text(build_logs[name])  # before the library, which marks it built
             os.replace(tmp, target)  # atomic: a reader never sees half a file
             build_seconds[name] = time.perf_counter() - t0
-            build_logs[name] = proc.stdout + proc.stderr
         lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
+        library_paths[name] = target
         return lib

@@ -10,16 +10,22 @@ Replaces the TPU kernels of `ray_tpu/ops/pallas/flash_attention.py`:
 - `_FlashAttention` mirrors the `jax.custom_vjp` wiring (:329-355).
 
 Each source's header says what bounds its kernels on the card and what the
-design does about it. For tensors on the CPU the wrappers compute the plain
-versions. For tensors on a CUDA device they launch the kernels or raise;
-they never fall back.
+design does about it. The bf16 kernels of B1 and B3 read their inputs by
+TMA: `tma_layout` computes, here in Python, the dims, byte strides and box
+of each tensor map, and `fwd_layout` and `dkv_layout` the maps and the
+grid from the tiles that the library sets (`kernel_tiles`); the CUDA side
+encodes the maps from those numbers and launches that grid. For tensors
+on the CPU the wrappers compute the plain versions. For tensors on a CUDA
+device they launch the kernels or raise; they never fall back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +37,11 @@ BWD_SOURCE = "flash_attn_bwd.cu"
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID_Y = 65535
+# Rows of the tiles that the grid's y dimension (at most 65535) runs over:
+# B2's q tiles in bf16, every f32 kernel's q or kv tiles. The bf16 B1 and B3
+# have a 1-d grid over tiles that their library sets (`kernel_tiles`).
+_GRID_Y_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+_ENCODE_FAILED = 999  # the CUDA side's code for a tensor map the CUDA driver refused
 # Serving runs batches from several threads at once: each count is a
 # read-modify-write, so it takes a lock.
 _count_lock = threading.Lock()
@@ -47,22 +58,24 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _kernel_readable(t: torch.Tensor) -> bool:
-    """The kernels read [B, S, H, D] tensors by their strides: the last dim
-    must be contiguous and, for bf16 (read 16 bytes at a time), every row
-    16-byte aligned. Strides of size-1 dims are never used."""
+    """The kernels read [B, S, H, D] tensors whose last dim is contiguous:
+    f32 by their strides, bf16 by TMA, so a bf16 tensor must also have what
+    `tma_layout` asks, a 16-byte-aligned base and strides that are positive
+    multiples of 16 bytes (a broadcast dim, of stride 0, has not)."""
     if t.stride(-1) != 1:
         return False
     if t.dtype != torch.bfloat16:
         return True
-    elem = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(
-        (s * elem) % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
-    )
+    try:
+        tma_layout(t, 1, 1)
+    except ValueError:
+        return False
+    return True
 
 
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on anything the CUDA kernels do not take. Reads only shapes,
-    types and strides, so it needs no card."""
+    types, strides and addresses, so it needs no card."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(
             f"flash kernel takes bf16 or f32 q/k/v of one type, got "
@@ -72,16 +85,120 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}/{k.device}/{v.device}")
-    # The grid's y dimension runs over q tiles (forward, dq) or kv tiles
-    # (dk/dv): 64 rows for bf16, 16 for f32.
-    tile = 64 if q.dtype == torch.bfloat16 else 16
-    if -(-max(q.shape[1], k.shape[1]) // tile) > _MAX_GRID_Y:
-        raise ValueError(f"sequence too long for the kernel's grid: {q.shape[1]}")
+    rows = _GRID_Y_ROWS[q.dtype]
+    lengths = (q.shape[1],) if q.dtype == torch.bfloat16 else (q.shape[1], k.shape[1])
+    if -(-max(lengths) // rows) > _MAX_GRID_Y:
+        raise ValueError(f"sequence too long for the kernels' grid: {max(lengths)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_readable(t):
             raise ValueError(
-                f"{name} must be contiguous in its last dim, with 16-byte-aligned rows for bf16"
+                f"{name} must be contiguous in its last dim and, for bf16, have a "
+                f"16-byte-aligned base and strides that are positive multiples of 16 bytes"
             )
+
+
+def tma_layout(t: torch.Tensor, rows: int, cols: int) -> Tuple[int, ...]:
+    """The numbers a TMA tensor map of a [B, S, H, D] bf16 tensor is encoded
+    from, read in boxes of `rows` rows by up to `cols` columns: dims (D, S,
+    H, B), innermost first; byte strides of S, H and B; box (columns, rows).
+    A size-1 dim's stride is never used, and is given the stride a
+    contiguous tensor would have (the CUDA driver checks every stride).
+    Raises ValueError where TMA cannot read the tensor: a strided last dim,
+    or a base address or stride that is not a positive multiple of 16
+    bytes. Reads only shapes, strides and the address, so it needs no
+    card."""
+    if t.dim() != 4 or t.dtype != torch.bfloat16:
+        raise ValueError(
+            f"TMA maps are built for bf16 [B, S, H, D], got {t.dtype} {tuple(t.shape)}"
+        )
+    if t.data_ptr() % 16:
+        raise ValueError("TMA needs a 16-byte-aligned base address")
+    return _tma_numbers(tuple(t.shape), t.stride(), rows, cols)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tma_numbers(shape: Tuple[int, ...], strides: Tuple[int, ...], rows: int,
+                 cols: int) -> Tuple[int, ...]:
+    """`tma_layout` from a bf16 tensor's shape and element strides; the
+    wrapper calls it for every launch, so its answers are kept."""
+    b, s, h, d = shape
+    if strides[3] != 1:
+        raise ValueError("TMA reads rows whose last dim is contiguous")
+    nbytes_of = []
+    prev_stride, prev_size = 2, d
+    for size, stride in ((s, strides[1]), (h, strides[2]), (b, strides[0])):
+        nbytes = stride * 2 if size > 1 else prev_stride * prev_size
+        if nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40:
+            raise ValueError(
+                f"TMA needs strides that are positive multiples of 16 bytes, got {nbytes}"
+            )
+        nbytes_of.append(nbytes)
+        prev_stride, prev_size = nbytes, size
+    return (d, s, h, b, *nbytes_of, min(d, cols), rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLayout:
+    """What one bf16 launch of B1 or B3 is built from: the tensor maps'
+    numbers by operand name (`tma_layout`) and the grid: one dimension, a
+    block per tile of each head, the blocks of one head adjacent so that
+    they share its streamed operands through L2."""
+
+    maps: Dict[str, Tuple[int, ...]]
+    blocks: int
+
+    def array(self) -> ctypes.Array:
+        """The maps' numbers in launch order, then the block count, as the
+        CUDA side reads them."""
+        flat = [n for m in self.maps.values() for n in m] + [self.blocks]
+        return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _maps(names, tensors, tiles) -> Dict[str, Tuple[int, ...]]:
+    *rows, cols = tiles
+    return {n: tma_layout(t, r, cols) for n, t, r in zip(names, tensors, rows)}
+
+
+def fwd_layout(q, k, v, o, tiles: Sequence[int]) -> KernelLayout:
+    """B1: `tiles` holds the rows of the q, k, v and o boxes, then their
+    columns, as `kernel_tiles("fwd")` reads them from the library; a block
+    per q tile of each (b, h). Raises ValueError where TMA cannot read or
+    write an operand."""
+    b, sq, h, _ = q.shape
+    return KernelLayout(maps=_maps(("q", "k", "v", "o"), (q, k, v, o), tiles),
+                        blocks=b * h * -(-sq // tiles[0]))
+
+
+def dkv_layout(q, k, v, do, tiles: Sequence[int]) -> KernelLayout:
+    """B3: `tiles` holds the rows of the q, k, v and dO boxes, then their
+    columns, as `kernel_tiles("dkv")` reads them from the library; a block
+    per kv tile of each (b, h_kv). Raises ValueError where TMA cannot read
+    an operand."""
+    b, sk, hkv, _ = k.shape
+    return KernelLayout(maps=_maps(("q", "k", "v", "do"), (q, k, v, do), tiles),
+                        blocks=b * hkv * -(-sk // tiles[1]))
+
+
+# Library, source and function that report each bf16 TMA kernel's tiles.
+_TILES_FROM = {"fwd": ("flash_attn_fwd", SOURCE, "flash_attn_fwd_tiles"),
+               "dkv": ("flash_attn_bwd", BWD_SOURCE, "flash_attn_bwd_dkv_tiles")}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tiles(kernel: str) -> Tuple[int, ...]:
+    """The box rows of each operand of the bf16 `kernel` ("fwd" or "dkv"),
+    in launch order, then the boxes' columns, as its library sets them.
+    Builds the library."""
+    lib_name, source, fn_name = _TILES_FROM[kernel]
+    out = (ctypes.c_int * 5)()
+    getattr(load_library(lib_name, [source]), fn_name)(out)
+    return tuple(out)
+
+
+def _launch_error(name: str, err: int) -> RuntimeError:
+    if err == _ENCODE_FAILED:
+        return RuntimeError(f"{name}: the CUDA driver refused a TMA tensor map")
+    return RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _visible(sq: int, sk: int, device) -> torch.Tensor:
@@ -125,29 +242,38 @@ def flash_attention_fwd_plain(
     return o.transpose(1, 2).to(q.dtype), m + torch.log(l_safe)
 
 
-def _launch(q, k, v, causal: bool, scale: float):
-    _check_kernel_inputs(q, k, v)
-    lib = load_library("flash_attn_fwd", [SOURCE])
-    fn = lib.flash_attn_fwd
+@functools.lru_cache(maxsize=None)
+def _fwd_function() -> ctypes._CFuncPtr:
+    """The forward entry point, its types declared once (the wrapper's host
+    time a call is part of every serving batch)."""
+    fn = load_library("flash_attn_fwd", [SOURCE]).flash_attn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
+    return fn
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    _check_kernel_inputs(q, k, v)
+    fn = _fwd_function()
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    maps = (fwd_layout(q, k, v, o, kernel_tiles("fwd")).array()
+            if q.dtype == torch.bfloat16 else None)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _DTYPE_CODES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        scale, int(causal), stream,
+        maps, scale, int(causal), stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+        raise _launch_error("flash_attn_fwd", err)
     with _count_lock:
         flash_attention_fwd.launches += 1
     return o, lse
@@ -222,18 +348,23 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-_BWD_POINTERS = {"flash_attn_bwd_dq": 7, "flash_attn_bwd_dkv": 8}
+# Pointer arguments before the ints, and after them (strides, and for dk/dv
+# the tensor maps' numbers).
+_BWD_POINTERS = {"flash_attn_bwd_dq": (7, 1), "flash_attn_bwd_dkv": (8, 2)}
 
 
+@functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
+    """The backward library, its entry points' types declared once."""
     lib = load_library("flash_attn_bwd", [BWD_SOURCE])
-    for name, n_ptr in _BWD_POINTERS.items():
+    for name, (n_ptr, n_tail) in _BWD_POINTERS.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptr
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p] * n_tail
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
     return lib
 
@@ -255,10 +386,11 @@ class _BwdLaunch:
             raise TypeError(f"dO must be {q.dtype} on {q.device}, got {do.dtype} on {do.device}")
         if lse.shape != (b, h, sq, 1) or lse.dtype != torch.float32:
             raise ValueError(f"lse must be f32 [B, H, Sq, 1], got {lse.dtype} {tuple(lse.shape)}")
-        # The gradient autograd hands over comes from the backward of the
-        # output projection's einsum and may have any strides: copy it where
-        # the kernels cannot read it (a fresh allocation, which is aligned
-        # even where the tensor is contiguous but its rows are not).
+        # The gradient autograd hands over may have any strides (the
+        # backward of an einsum permutes them; that of a sum over S
+        # broadcasts, with stride 0): copy it where the kernels cannot read
+        # it (a fresh allocation, which is aligned even where the tensor is
+        # contiguous but its rows are not).
         if not _kernel_readable(do):
             do = do.clone(memory_format=torch.contiguous_format)
         lse = lse.contiguous()
@@ -273,27 +405,30 @@ class _BwdLaunch:
             *(s for t in (q, k, v, do, self.dq_out, self.dk_out, self.dv_out)
               for s in t.stride()[:3])
         )
+        self._maps = (dkv_layout(q, k, v, do, kernel_tiles("dkv")).array()
+                      if q.dtype == torch.bfloat16 else None)
         self._inputs = tuple(t.data_ptr() for t in self._keep)
-        self._tail = (
-            _DTYPE_CODES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
-            ctypes.cast(self._strides, ctypes.c_void_p), scale, int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        self._ints = (_DTYPE_CODES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
+                      ctypes.cast(self._strides, ctypes.c_void_p))
+        self._tail = (scale, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
         self._lib = _bwd_library()
 
     def dq(self) -> None:
-        err = self._lib.flash_attn_bwd_dq(*self._inputs, self.dq_out.data_ptr(), *self._tail)
+        err = self._lib.flash_attn_bwd_dq(
+            *self._inputs, self.dq_out.data_ptr(), *self._ints, *self._tail
+        )
         if err != 0:
-            raise RuntimeError(f"flash_attn_bwd_dq launch failed: CUDA error {err}")
+            raise _launch_error("flash_attn_bwd_dq", err)
         with _count_lock:
             flash_attention_bwd.launches_dq += 1
 
     def dkv(self) -> None:
         err = self._lib.flash_attn_bwd_dkv(
-            *self._inputs, self.dk_out.data_ptr(), self.dv_out.data_ptr(), *self._tail
+            *self._inputs, self.dk_out.data_ptr(), self.dv_out.data_ptr(), *self._ints,
+            self._maps, *self._tail,
         )
         if err != 0:
-            raise RuntimeError(f"flash_attn_bwd_dkv launch failed: CUDA error {err}")
+            raise _launch_error("flash_attn_bwd_dkv", err)
         with _count_lock:
             flash_attention_bwd.launches_dkv += 1
 
