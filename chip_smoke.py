@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --forward-times   # only B1's times (main_forward_times)
+    python3 chip_smoke.py --backward-times  # only B2's and B3's (main_backward_times)
 
 Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
@@ -12,8 +13,8 @@ printing the final line:
    kernels from ray_tpu_torch/csrc with nvcc, one nvcc per source, started
    together; prints each kernel's registers, shared memory and spills
    (ptxas) and, where the toolkit has cuobjdump, its HGMMA (wgmma) and HMMA
-   (mma.sync) instruction counts, and fails if the wgmma kernels spill or
-   hold an mma.sync;
+   (mma.sync) instruction counts, and fails if a bf16 kernel (all three
+   run on wgmma) spills or holds an mma.sync;
 2. the forward kernels against their plain PyTorch version on the card
    (FWD_CASES: head_dim 128 and 64, S = 1, 64, 200, 1000 and 1024, GQA,
    causal and not, bf16 and f32), with times at the serving shape of the
@@ -31,8 +32,9 @@ printing the final line:
    plain forward and backward in f32 from the same inputs (BWD_CASES: the
    training shape causal and full and with a permuted dO, head_dim 128 and
    64, S = 1, 64, 200, 1000 and 1024, GQA, causal and not, bf16 and f32),
-   with CUDA-event times of each kernel, the plain backward and the
-   library's backward at the training shape;
+   with times of each kernel at the training shape (CUDA events around
+   eager calls and CUDA-graph replays), of the wrapper's delta pre-pass,
+   the plain backward and the library's backward;
 5. training at bench.py's head configuration (d2048 L16 H16/16 ff5504
    V32000, bf16 params, remat qkv_attn, batch 16 x 1024, strategy dp) through
    `LMTrainContext` with random weights from a seeded generator: 2 warm-up
@@ -137,18 +139,19 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, calls: int = 20, replays: int = 5, stream=None) -> float:
     """Device time of one call of `fn`: `calls` calls captured in a CUDA
     graph, the replays timed with CUDA events, so that the host's time to
-    issue a call drops out; `fn` must launch on the current stream."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
+    issue a call drops out. `fn` launches on the current stream, or on
+    `stream`, which is then the one captured."""
+    warm = stream if stream is not None else torch.cuda.Stream()
+    warm.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(warm):
         for _ in range(2):
             fn()
-    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.current_stream().wait_stream(warm)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     ms = time_ms(graph.replay, iters=replays) / calls
@@ -263,6 +266,43 @@ def main_forward_times() -> int:
     for shape, b in (("serving", MAX_BATCH), ("training", TRAIN_BATCH)):
         times[shape] = forward_times(*rand_qkv(g, b, PROMPT_LEN, 16, 16, 128, torch.bfloat16))
     print(json.dumps({"forward_times": times}), flush=True)
+    return 0
+
+
+def backward_times(q, k, v, o, lse, do) -> dict:
+    """B2 and B3 (causal) on one prepared launch at these inputs: CUDA
+    events around eager calls (`ms`) and CUDA-graph replays (`graph_ms`,
+    the card alone). The launch is prepared on a stream of its own, which
+    it binds, and the graphs are captured on that stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call = flash._BwdLaunch(q, k, v, o, lse, do, True, q.shape[-1] ** -0.5)
+        times = {name: dict(ms=time_ms(fn, iters=20), graph_ms=graph_ms(fn, stream=stream))
+                 for name, fn in (("flash_attn_bwd_dq", call.dq),
+                                  ("flash_attn_bwd_dkv", call.dkv))}
+    torch.cuda.current_stream().wait_stream(stream)
+    return times
+
+
+def training_shape_inputs(g) -> tuple:
+    """q, k, v, dO at the training shape and the forward's o and lse."""
+    q, k, v = rand_qkv(g, TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128, torch.bfloat16)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+    return (q, k, v, *flash.flash_attention_fwd(q, k, v, causal=True), do)
+
+
+def main_backward_times() -> int:
+    """`python3 chip_smoke.py --backward-times`: backward_times at the
+    training shape, and nothing else, for the `ray_tpu_torch` beside this
+    script (a copy of the script in another checkout times that checkout's
+    kernels by the same method)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    print(json.dumps({"backward_times": backward_times(*training_shape_inputs(g))}), flush=True)
     return 0
 
 
@@ -424,7 +464,7 @@ def solo_batch_seconds(server, toks, reps: int = 3) -> tuple:
 
 # The bf16 kernel of each of the port's kernels on the path, by the name in
 # its symbol (as the profiler, ptxas and cuobjdump show it).
-KERNEL_MARKERS = {"flash_attn_fwd": "fwd_wgmma_kernel", "flash_attn_bwd_dq": "dq_bf16_kernel",
+KERNEL_MARKERS = {"flash_attn_fwd": "fwd_wgmma_kernel", "flash_attn_bwd_dq": "dq_wgmma_kernel",
                   "flash_attn_bwd_dkv": "dkv_wgmma_kernel"}
 
 
@@ -530,13 +570,13 @@ def phase_backward(g) -> dict:
 
 
 def time_training_shape(q, k, v, do, o, lse, o_plain, errs) -> dict:
-    """Times of B1 (forward_times), and CUDA-event times of B2 and B3 at the
-    training shape, of their plain version, and of the library's attention
-    forward and backward (scaled_dot_product_attention, a yardstick the port
-    never calls)."""
-    call = flash._BwdLaunch(q, k, v, o, lse, do, True, q.shape[-1] ** -0.5)
-    dq_ms = time_ms(call.dq, iters=20)
-    dkv_ms = time_ms(call.dkv, iters=20)
+    """Times of B1 (forward_times), of B2 and B3 (backward_times) at the
+    training shape, of the wrapper's delta pre-pass, of their plain version,
+    and of the library's attention forward and backward
+    (scaled_dot_product_attention, a yardstick the port never calls)."""
+    bwd = backward_times(q, k, v, o, lse, do)
+    delta = lambda: flash._delta(do, o)  # noqa: E731
+    delta_times = dict(ms=time_ms(delta, iters=20), graph_ms=graph_ms(delta))
     bwd_plain_ms = time_ms(
         lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), iters=3
     )
@@ -556,11 +596,12 @@ def time_training_shape(q, k, v, do, o, lse, o_plain, errs) -> dict:
     pair = dict(plain_ms=bwd_plain_ms, library_ms=lib_fwd_bwd_ms - lib_fwd_ms)
     timing = {
         "flash_attn_fwd": dict(max_abs_err=fwd_err, **forward_times(q, k, v)),
-        "flash_attn_bwd_dq": dict(max_abs_err=errs["dq"][0], ms=dq_ms, **pair,
-                                  bound_ms=bwd_bound["dq"][0], bound_by=bwd_bound["dq"][1]),
-        "flash_attn_bwd_dkv": dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
-                                   **pair, bound_ms=bwd_bound["dkv"][0],
-                                   bound_by=bwd_bound["dkv"][1]),
+        "flash_attn_bwd_dq": dict(max_abs_err=errs["dq"][0], **bwd["flash_attn_bwd_dq"],
+                                  **pair, bound_ms=bwd_bound["dq"][0],
+                                  bound_by=bwd_bound["dq"][1], delta_prepass=delta_times),
+        "flash_attn_bwd_dkv": dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                                   **bwd["flash_attn_bwd_dkv"], **pair,
+                                   bound_ms=bwd_bound["dkv"][0], bound_by=bwd_bound["dkv"][1]),
     }
     print(f"kernel timing at training shape: {json.dumps(timing)}", flush=True)
     return timing
@@ -684,9 +725,9 @@ def phase_training(card: str) -> tuple:
 
 
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
-# B1 and B3 must run on wgmma (HGMMA in SASS), not mma.sync (HMMA), and
-# spill nothing.
-WGMMA_KERNELS = (KERNEL_MARKERS["flash_attn_fwd"], KERNEL_MARKERS["flash_attn_bwd_dkv"])
+# Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
+# and spill nothing.
+WGMMA_KERNELS = tuple(KERNEL_MARKERS.values())
 
 
 def _kernel_label(symbol: str) -> str:
@@ -729,6 +770,8 @@ def ptxas_report() -> dict:
                 report[label]["static_smem"] = int(sm.group(1)) if sm else 0
     for d in flash.HEAD_DIMS:
         for lib, fn, kernel in (("flash_attn_fwd", "flash_attn_fwd_smem_bytes", "fwd_wgmma_kernel"),
+                                ("flash_attn_bwd", "flash_attn_bwd_dq_smem_bytes",
+                                 "dq_wgmma_kernel"),
                                 ("flash_attn_bwd", "flash_attn_bwd_dkv_smem_bytes",
                                  "dkv_wgmma_kernel")):
             entry = report.setdefault(f"{kernel}<{d}>", {})
@@ -841,8 +884,12 @@ def main() -> int:
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
-         "design": "dq_bf16_kernel: mma.sync m16n8k16, 4 warps x 16 q rows, 64-row k/v tiles "
-                   "through shared memory (not yet redesigned)",
+         "design": "dq_wgmma_kernel: warp-specialised, a producer warpgroup (setmaxnreg "
+                   "24) loads q/dO once and 64-row k/v tiles through a 3-stage ring by TMA "
+                   "with mbarriers; 2 consumer warpgroups (setmaxnreg 240) x 64 q rows, "
+                   "lse/delta in registers, wgmma for S, dP (shared memory) and dq (dS from "
+                   "registers, k read transposed), S/dP of the next tile issued ahead of "
+                   "dS k of this one",
          "launches": train_launches[1],
          "launches_by_path": {"serving": 0, "train_step": train_launches[1]},
          **train_timing["flash_attn_bwd_dq"]},
@@ -871,4 +918,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main_forward_times() if sys.argv[1:] == ["--forward-times"] else main())
+    modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times}
+    sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

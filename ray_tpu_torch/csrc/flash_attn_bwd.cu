@@ -22,53 +22,53 @@
 // the products must run on the tensor cores and the [S, S] matrices P, dP
 // and dS must stay on chip.
 //
-// What the design does about it:
-// - B2 (dq_bf16_kernel): one block per (b*h, 64-row q tile), 4 warps of 16
-//   q rows; the q and dO fragments stay in registers for the whole kv loop,
-//   64-row k and v tiles pass through shared memory, and the causal loop
-//   stops at the diagonal. The heaviest causal q tiles are scheduled first.
-//   Its products run on mma.sync m16n8k16 bf16 with f32 accumulation.
-// - B3 (dkv_wgmma_kernel): one block per (b*h_kv, 128-row kv tile), the
-//   blocks of one (b, h_kv) adjacent in the grid so that they share its q
-//   and dO through L2, heaviest causal tiles first; two warpgroups of 64
-//   kv rows each that keep dk and dv in registers, and a producer
-//   warpgroup (warp specialisation): its one working thread loads k and v
-//   once by TMA, then streams 64-row q and dO tiles through a 3-stage ring
-//   guarded by mbarriers, refilling a stage once every consumer warp has
-//   released it. The producer gives its registers back (setmaxnreg to 24)
-//   and the consumers take them (240 each), which dk, dv, S^T, dP^T and the
-//   A fragments need.
-//   Each warpgroup copies the next q tile's lse and delta into shared
-//   memory by cp.async while it works on this one. Per q tile: S^T = k q^T
-//   by wgmma from shared memory (K-major);
-//   P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), no running max since
-//   lse is known; dP^T = v dO^T and dv += P^T dO issued together; then
-//   dS^T = P^T (dP^T - delta) while dv runs, and dk += dS^T q. P^T and dS^T
-//   go to bf16 A registers straight from the accumulators, and dO and q are
-//   read transposed (MN-major) from the same shared tiles. The causal loop
-//   starts at the diagonal; a warpgroup skips a tile wholly above its rows.
-//   GQA: the block loops over the group's q heads (deterministic, no
-//   atomics). dk takes the scale once at the store.
+// What the design does about it: both bf16 kernels are warp-specialised
+// blocks of 384 threads. A producer warpgroup gives its registers back
+// (setmaxnreg to 24); its one working thread loads the block's fixed tiles
+// once by TMA and streams 64-row tiles of the other operands through a
+// 3-stage ring guarded by mbarriers (full: the bytes have landed; empty:
+// every consumer warp is done with the stage), so loads run ahead of the
+// products. Two consumer warpgroups take the registers (240 each) and run
+// every product on wgmma, 64 rows each. Blocks that share the streamed
+// operands are adjacent in a 1-d grid, so they run together and share them
+// through L2, and the heaviest causal tiles come first.
+// - B2 (dq_wgmma_kernel): one block per (b*h, 128-row q tile), q and dO
+//   loaded once, k and v streamed; the causal loop stops at the diagonal
+//   and a warpgroup skips (but releases) a tile wholly above its rows.
+//   lse and delta are fixed per q row, so each thread keeps its two rows'
+//   in registers. Per kv tile: S = q k^T and dP = dO v^T by wgmma from
+//   shared memory (K-major); dS = P (dP - delta) with
+//   P = exp2(S * scale * log2(e) - lse * log2(e)) (no running max: lse is
+//   known), packed to bf16 A fragments straight from the accumulator; then
+//   dq += dS k with k read transposed (MN-major) from the same tile. Inside
+//   a warpgroup S and dP of the next tile are issued ahead of dS k of this
+//   one, so dS is formed while a product runs. dq takes the scale once at
+//   the store.
+// - B3 (dkv_wgmma_kernel): one block per (b*h_kv, 128-row kv tile), k and
+//   v loaded once, q and dO streamed; the causal loop starts at the
+//   diagonal; a warpgroup skips a tile wholly above its rows. Each
+//   warpgroup copies the next q tile's lse and delta into shared memory by
+//   cp.async while it works on this one. Per q tile: S^T = k q^T by wgmma
+//   from shared memory (K-major);
+//   P^T = exp2(S^T * scale * log2(e) - lse * log2(e)); dP^T = v dO^T and
+//   dv += P^T dO issued together; then dS^T = P^T (dP^T - delta) while dv
+//   runs, and dk += dS^T q. P^T and dS^T go to bf16 A registers straight
+//   from the accumulators, and dO and q are read transposed (MN-major) from
+//   the same shared tiles. GQA: the block loops over the group's q heads
+//   (deterministic, no atomics). dk takes the scale once at the store.
 // - The q scale is applied to the f32 scores after the bf16 product, as in
-//   the forward kernel; dq takes the scale once at the end.
+//   the forward kernel.
 // - Ragged rows and columns are masked by index, never by the -1e30 trick:
-//   rows past Sq have no lse, columns past Sk hold no data.
+//   rows past Sq have no lse, columns past Sk hold no data (TMA reads them
+//   as zeros).
 // f32 inputs take scalar kernels (no tensor cores) that keep the
 // reference's f32 arithmetic; they are not on the training path.
 
-#include "bf16_mma.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using flash::load_a;
-using flash::load_b_kn;
-using flash::load_b_nk;
-using flash::load_tile;
-using flash::mma_bf16;
-using flash::pack_bf16;
-
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // f32 kernels
 
 struct Params {
   const void* q;
@@ -94,125 +94,241 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16 ----
 
-// B2: dq for one (b*h, 64-row q tile).
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_bf16_kernel(const Params p) {
-  constexpr int BQ = 64, BK = 64, LD = D + 8;
-  constexpr int KC = D / 16;  // 16-deep chunks of the head dim
-  constexpr int ND = D / 8;   // 8-wide column tiles of dq
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
+constexpr int kDqBM = 128;  // q rows per block: two consumer warpgroups of 64
+constexpr int kDqBN = 64;   // kv rows per streamed tile
+constexpr int kDqStages = 3;
+// Rows of the q, k, v and dO boxes, in the order of the wrapper's maps.
+constexpr int kDqBoxRows[4] = {kDqBM, kDqBN, kDqBN, kDqBM};
 
-  const int bh = blockIdx.x;
+struct DqTmaParams {
+  CUtensorMap q, k, v, dout;
+  const float* lse;    // [B, H, Sq]
+  const float* delta;  // [B, H, Sq]
+  void* dq;
+  int H, Hkv, Sq, Sk;
+  long long dq_sb, dq_ss, dq_sh;
+  float scale, scale_log2;  // scale_log2 = scale * log2(e)
+  int causal;
+};
+
+// Dynamic shared memory of dq_wgmma_kernel: the q and dO tiles, then the k
+// and v tiles of each stage, plus room to align the start to 1024 bytes.
+constexpr int dq_smem_bytes(int D) {
+  return 2 * kDqBM * D * 2 + kDqStages * 2 * kDqBN * D * 2 + 1024;
+}
+
+// B2: dq for one (b*h, 128-row q tile).
+template <int D>
+__global__ void __launch_bounds__(hopper::kWsThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ DqTmaParams p) {
+  using namespace hopper;
+  constexpr int BM = kDqBM, BN = kDqBN, ST = kDqStages;
+  constexpr int Q_BYTES = BM * D * 2;   // q or dO
+  constexpr int KV_BYTES = BN * D * 2;  // one k or v tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_full[ST], bar_empty[ST];
+  uint8_t* const qs = smem_raw + align_1024(smem_u32(smem_raw));
+  uint8_t* const dos = qs + Q_BYTES;
+  uint8_t* const stages = dos + Q_BYTES;  // k then v, per stage
+
+  // Blocks of one (b, h_kv) are adjacent (the group's q heads, then the q
+  // tiles of each), so they share its k and v through L2; within a head the
+  // heaviest causal q tiles come first.
+  const int q_tiles = (p.Sq + BM - 1) / BM;
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;  // this warp's first row in the q tile
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * BM;
+  const int kv_end = p.causal ? min(p.Sk, q0 + BM) : p.Sk;
+  const int n_tiles = (kv_end + BN - 1) / BN;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  // q and dO tiles -> registers (staged through the k and v buffers).
-  load_tile<BQ, D, LD, kThreads>(ks, qg, p.q_ss, q0, p.Sq);
-  load_tile<BQ, D, LD, kThreads>(vs, dog, p.do_ss, q0, p.Sq);
-  __syncthreads();
-  uint32_t qf[KC][4], dof[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    load_a<LD>(qf[kc], ks, wr, kc * 16, g, t);
-    load_a<LD>(dof[kc], vs, wr, kc * 16, g, t);
-  }
-  __syncthreads();
-
-  // This thread's rows are row0 and row0 + 8.
-  const int row0 = q0 + wr + g;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    const long long at = (long long)bh * p.Sq + row;
-    lse_r[i] = row < p.Sq ? p.lse[at] : 0.f;
-    delta_r[i] = row < p.Sq ? p.delta[at] : 0.f;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int last_row = q0 + wr + 15;  // this warp's last q row
-  const bool rows_ragged = q0 + wr + 16 > p.Sq;
-  const int kv_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    load_tile<BK, D, LD, kThreads>(ks, kg, p.k_ss, k0, p.Sk);
-    load_tile<BK, D, LD, kThreads>(vs, vg, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    for (int j = 0; j < BK; j += 16) {
-      const int c0 = k0 + j;  // first kv column of this chunk
-      // Later chunks are past the end too, or above this warp's diagonal.
-      if (c0 >= p.Sk || (p.causal && c0 > last_row)) break;
-      // s = q k^T and dp = dO v^T for 16 rows x 16 columns.
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          uint32_t b0, b1;
-          load_b_nk<LD>(b0, b1, ks, j + n * 8, kc * 16, g, t);
-          mma_bf16(s[n], qf[kc], b0, b1);
-          load_b_nk<LD>(b0, b1, vs, j + n * 8, kc * 16, g, t);
-          mma_bf16(dp[n], dof[kc], b0, b1);
-        }
-      }
-      const bool edge = rows_ragged || c0 + 16 > p.Sk || (p.causal && c0 + 15 > q0 + wr);
-      // ds = p * (dp - delta), written over s.
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float pe = expf(s[n][e] * p.scale - lse_r[i]);
-          if (edge) {
-            const int col = c0 + n * 8 + t * 2 + (e & 1);
-            const int row = row0 + i * 8;
-            if (row >= p.Sq || col >= p.Sk || (p.causal && col > row)) pe = 0.f;
-          }
-          s[n][e] = pe * (dp[n][e] - delta_r[i]);
-        }
-      }
-      // acc += ds k: the chunk's 16 kv columns are the product's depth.
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        load_b_kn<LD>(b0, b1, ks, j, n * 8, g, t);
-        mma_bf16(acc[n], a, b0, b1);
-      }
+  // full: the tile's bytes have landed; empty: lane 0 of each of the 8
+  // consumer warps is done with it.
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&bar_full[st], 1);
+      mbar_init(&bar_empty[st], 8);
     }
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Producer warpgroup: one thread loads q and dO, then k and v tile j into
+  // stage j % ST as soon as both consumers have released tile j - ST. It
+  // alone waits with a timeout (see mbar_wait_or_trap).
+  if (warpgroup() == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bar_q, 2 * Q_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(qs + c * BM * 128, &p.q, &bar_q, c * 64, q0, h, b);
+        tma_load_4d(dos + c * BM * 128, &p.dout, &bar_q, c * 64, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        uint8_t* const dst = stages + st * 2 * KV_BYTES;
+        if (j >= ST) mbar_wait_or_trap(&bar_empty[st], ((j / ST) & 1) ^ 1);  // j - ST released
+        mbar_expect_tx(&bar_full[st], 2 * KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(dst + c * BN * 128, &p.k, &bar_full[st], c * 64, j * BN, hk, b);
+          tma_load_4d(dst + KV_BYTES + c * BN * 128, &p.v, &bar_full[st], c * 64, j * BN, hk, b);
+        }
+      }
+      // Until the consumers have used every tile, trapping if they never do.
+      mbar_wait_or_trap(&bar_q, 0);
+      for (int j = max(0, n_tiles - ST); j < n_tiles; ++j)
+        mbar_wait_or_trap(&bar_empty[j % ST], (j / ST) & 1);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // Consumer warpgroup cw owns q rows [wq0, wq0 + 64).
+  const int cw = warpgroup() - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, c4 = lane % 4;
+  const int wq0 = q0 + 64 * cw;
+  const int row0 = wq0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_base = smem_u32(qs) + cw * 64 * 128;
+  const uint32_t do_base = smem_u32(dos) + cw * 64 * 128;
+  // The tiles this warpgroup computes: none past its last row when causal,
+  // none at all when its rows are past Sq (they are never stored).
+  const int n_mine =
+      wq0 >= p.Sq ? 0 : p.causal ? min(n_tiles, (wq0 + 63) / BN + 1) : n_tiles;
+
+  // lse (in log2 units) and delta of this thread's two rows; rows past Sq
+  // read zeros (their q and dO rows are zeros too).
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long at = (long long)bh * p.Sq + row;
+    lse2[r] = row < p.Sq ? p.lse[at] * 1.4426950408889634f : 0.f;
+    del[r] = row < p.Sq ? p.delta[at] : 0.f;
   }
 
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[BN / 2], dp[BN / 2];
+  uint32_t da[BN / 16][4];
+
+  auto k_base = [&](int j) { return smem_u32(stages + (j % ST) * 2 * KV_BYTES); };
+  // S = q k^T and dP = dO v^T for kv tile j: 64 rows x BN columns each.
+  auto issue_s_dp = [&](int j) {
+    const uint32_t kb = k_base(j), vb = kb + KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32;  // 16-deep step inside a 64-column box
+      Wgmma<BN>::template ss<0>(sc, desc_sw128(q_base + (kk / 4) * BM * 128 + step, 16, 1024),
+                                desc_sw128(kb + (kk / 4) * BN * 128 + step, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32;
+      Wgmma<BN>::template ss<0>(dp, desc_sw128(do_base + (kk / 4) * BM * 128 + step, 16, 1024),
+                                desc_sw128(vb + (kk / 4) * BN * 128 + step, 16, 1024), kk > 0);
+    }
+  };
+  // dq += dS k for kv tile j, k read transposed (MN-major): 16 kv rows are
+  // 2048 bytes, 64-column boxes BN * 128 bytes apart.
+  auto issue_dq = [&](int j) {
+    const uint32_t kb = k_base(j);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      Wgmma<D>::template rs<1>(dq, da[kk], desc_sw128(kb + kk * 2048, BN * 128, 1024), 1);
+    }
+  };
+  // dS = P (dP - delta) in place of S, P masked by index where tile j
+  // crosses the end or the diagonal.
+  auto form_ds = [&](int j) {
+    const int k0 = j * BN;
+    const bool edge = k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > wq0);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i / 2) & 1;
+      float pe = exp2f(fmaf(sc[i], p.scale_log2, -lse2[r]));
+      if (edge) {
+        const int col = k0 + 8 * (i / 4) + 2 * c4 + (i & 1);
+        if (col >= p.Sk || (p.causal && col > row0 + 8 * r)) pe = 0.f;
+      }
+      sc[i] = pe * (dp[i] - del[r]);
+    }
+  };
+  // dS as A fragments: columns [16kk, 16kk + 16) of the accumulator.
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) da[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    }
+  };
+  auto wait_full = [&](int j) { mbar_wait(&bar_full[j % ST], (j / ST) & 1); };
+  // This warp is done with tile j's k and v.
+  auto release = [&](int j) {
+    if (lane == 0) mbar_arrive(&bar_empty[j % ST]);
+  };
+
+  // Software pipeline inside the warpgroup: S and dP of tile j are issued
+  // ahead of dS k of tile j - 1, and dS of tile j is formed while that
+  // product runs.
+  mbar_wait(&bar_q, 0);
+  if (n_mine > 0) {
+    wait_full(0);
+    wgmma_fence();
+    issue_s_dp(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form_ds(0);
+    pack();
+    for (int j = 1; j < n_mine; ++j) {
+      wait_full(j);
+      wgmma_fence();
+      issue_s_dp(j);
+      wgmma_commit();
+      issue_dq(j - 1);
+      wgmma_commit();
+      fence_regs(dq);
+      wgmma_wait<1>();  // S and dP of tile j have landed; dS k of tile j - 1 may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      form_ds(j);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);  // read by the product until here
+      release(j - 1);
+      pack();
+    }
+    wgmma_fence();
+    issue_dq(n_mine - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(da);
+    release(n_mine - 1);
+  }
+  // Tiles wholly above this warpgroup's rows: released unread once landed,
+  // so that the producer's accounting of the stage holds.
+  for (int j = n_mine; j < n_tiles; ++j) {
+    wait_full(j);
+    release(j);
+  }
+
+  // dq rows past Sq are not written.
   __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row < p.Sq) {
-      __nv_bfloat16* out = dqg + (long long)row * p.dq_ss + t * 2;
+      __nv_bfloat16* out = dqg + (long long)row * p.dq_ss + 2 * c4;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         *reinterpret_cast<uint32_t*>(out + n * 8) =
-            pack_bf16(acc[n][2 * i] * p.scale, acc[n][2 * i + 1] * p.scale);
+            pack_bf16(dq[4 * n + 2 * r] * p.scale, dq[4 * n + 2 * r + 1] * p.scale);
       }
     }
   }
@@ -639,59 +755,61 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
                 scale, causal};
 }
 
-}  // namespace
-
-// Both entry points launch on `stream` and return cudaGetLastError() right
-// after the launch (0 on success), hopper::kEncodeFailed when the CUDA driver
-// refuses a tensor map, or cudaErrorInvalidValue for a type, head dim or
-// layout the kernels are not built for. dtype: 0 = bf16, 1 = f32. q, k, v,
-// dO, dq, dk and dv are [B, S, H, D] with the element strides in `strides`
-// (21 values: q, k, v, dO, dq, dk, dv, each batch, seq, head); lse and
-// delta are contiguous f32 [B, H, Sq]. B3 in bf16 also takes `maps`:
-// hopper::kMapArgs values for each of q, k, v and dO (dims, byte strides,
-// box), as the wrapper computes them, then the block count; f32 ignores it.
-
-// B2: writes dq.
-extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, int dtype, int B,
-                                 int H, int Hkv, int Sq, int Sk, int D, const long long* strides,
-                                 float scale, int causal, void* stream) {
-  if (B == 0 || H == 0 || Sq == 0) return 0;
-  const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hkv, Sq, Sk,
-                               strides, scale, causal);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bq = dtype == 0 ? 64 : 16;
-  const dim3 grid(B * H, (Sq + bq - 1) / bq);
-  if (dtype == 0 && D == 128) {
-    dq_bf16_kernel<128><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 0 && D == 64) {
-    dq_bf16_kernel<64><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 1 && D == 128) {
-    dq_f32_kernel<128><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 1 && D == 64) {
-    dq_f32_kernel<64><<<grid, kThreads, 0, s>>>(p);
-  } else {
+// The wrapper's maps of a bf16 kernel (q, k, v and dO, hopper::kMapArgs
+// values each, then the block count) encoded into `q`, `k`, `v` and `dout`.
+// Returns 0; cudaErrorInvalidValue when the boxes are not the kernel's
+// (`rows`) or the count is not the grid it decodes (`blocks`);
+// hopper::kEncodeFailed when the CUDA driver refuses a map.
+int encode_inputs(const Params& a, const long long* maps, const int* rows, int D,
+                  long long blocks, CUtensorMap* q, CUtensorMap* k, CUtensorMap* v,
+                  CUtensorMap* dout) {
+  using namespace hopper;
+  if (maps == nullptr || !boxes_match(maps, rows, 4, D) || maps[4 * kMapArgs] != blocks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (encode_bf16_map(q, a.q, maps) || encode_bf16_map(k, a.k, maps + kMapArgs) ||
+      encode_bf16_map(v, a.v, maps + 2 * kMapArgs) ||
+      encode_bf16_map(dout, a.dout, maps + 3 * kMapArgs)) {
+    return kEncodeFailed;
+  }
+  return 0;
+}
+
+template <int D>
+int launch_dq_bf16(const Params& a, const long long* maps, cudaStream_t stream) {
+  using namespace hopper;
+  const long long blocks = (long long)a.B * a.H * ((a.Sq + kDqBM - 1) / kDqBM);
+  DqTmaParams p;
+  const int bad = encode_inputs(a, maps, kDqBoxRows, D, blocks, &p.q, &p.k, &p.v, &p.dout);
+  if (bad) return bad;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dq = a.dq;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.dq_sb = a.dq_sb;
+  p.dq_ss = a.dq_ss;
+  p.dq_sh = a.dq_sh;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  constexpr int smem = dq_smem_bytes(D);
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = set_smem_once(dq_wgmma_kernel<D>, smem, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_wgmma_kernel<D><<<(unsigned)blocks, kWsThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-static int launch_dkv_bf16(const Params& a, const long long* maps, cudaStream_t stream) {
+int launch_dkv_bf16(const Params& a, const long long* maps, cudaStream_t stream) {
   using namespace hopper;
-  // maps: q, k, v, dO, kMapArgs values each, then the block count; the
-  // boxes must be the ones the kernel reads (kDkvBoxRows) and the count the
-  // grid it decodes.
   const long long blocks = (long long)a.B * a.Hkv * ((a.Sk + kDkvBN - 1) / kDkvBN);
-  if (maps == nullptr || !boxes_match(maps, kDkvBoxRows, 4, D) || maps[4 * kMapArgs] != blocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   DkvTmaParams p;
-  if (encode_bf16_map(&p.q, a.q, maps) || encode_bf16_map(&p.k, a.k, maps + kMapArgs) ||
-      encode_bf16_map(&p.v, a.v, maps + 2 * kMapArgs) ||
-      encode_bf16_map(&p.dout, a.dout, maps + 3 * kMapArgs)) {
-    return kEncodeFailed;
-  }
+  const int bad = encode_inputs(a, maps, kDkvBoxRows, D, blocks, &p.q, &p.k, &p.v, &p.dout);
+  if (bad) return bad;
   p.lse = a.lse;
   p.delta = a.delta;
   p.dk = a.dk;
@@ -714,6 +832,40 @@ static int launch_dkv_bf16(const Params& a, const long long* maps, cudaStream_t 
   const cudaError_t err = set_smem_once(dkv_wgmma_kernel<D>, smem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dkv_wgmma_kernel<D><<<(unsigned)blocks, kWsThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entry points launch on `stream` and return cudaGetLastError() right
+// after the launch (0 on success), hopper::kEncodeFailed when the CUDA driver
+// refuses a tensor map, or cudaErrorInvalidValue for a type, head dim or
+// layout the kernels are not built for. dtype: 0 = bf16, 1 = f32. q, k, v,
+// dO, dq, dk and dv are [B, S, H, D] with the element strides in `strides`
+// (21 values: q, k, v, dO, dq, dk, dv, each batch, seq, head); lse and
+// delta are contiguous f32 [B, H, Sq]. In bf16 both also take `maps`:
+// hopper::kMapArgs values for each of q, k, v and dO (dims, byte strides,
+// box), as the wrapper computes them, then the block count; f32 ignores it.
+
+// B2: writes dq.
+extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, int dtype, int B,
+                                 int H, int Hkv, int Sq, int Sk, int D, const long long* strides,
+                                 const long long* maps, float scale, int causal, void* stream) {
+  if (B == 0 || H == 0 || Sq == 0) return 0;
+  const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hkv, Sq, Sk,
+                               strides, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 128) return launch_dq_bf16<128>(p, maps, s);
+  if (dtype == 0 && D == 64) return launch_dq_bf16<64>(p, maps, s);
+  const dim3 grid(B * H, (Sq + 15) / 16);
+  if (dtype == 1 && D == 128) {
+    dq_f32_kernel<128><<<grid, kThreads, 0, s>>>(p);
+  } else if (dtype == 1 && D == 64) {
+    dq_f32_kernel<64><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -740,12 +892,20 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of the bf16 dk/dv kernel at head dim D, for reports.
+// Dynamic shared memory of the bf16 dq and dk/dv kernels at head dim D, for
+// reports.
+extern "C" int flash_attn_bwd_dq_smem_bytes(int D) { return dq_smem_bytes(D); }
 extern "C" int flash_attn_bwd_dkv_smem_bytes(int D) { return dkv_smem_bytes(D); }
 
-// What the wrapper builds the bf16 dk/dv kernel's maps and grid from: the
-// rows of the q, k, v and dO boxes (the second is the kv tile of a block),
-// then the boxes' widest column count.
+// What the wrapper builds a bf16 kernel's maps and grid from: the rows of
+// the q, k, v and dO boxes (for dq the first is the q tile of a block, for
+// dk/dv the second is the kv tile of a block), then the boxes' widest
+// column count.
+extern "C" void flash_attn_bwd_dq_tiles(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = kDqBoxRows[i];
+  out[4] = hopper::kBoxCols;
+}
+
 extern "C" void flash_attn_bwd_dkv_tiles(int* out) {
   for (int i = 0; i < 4; ++i) out[i] = kDkvBoxRows[i];
   out[4] = hopper::kBoxCols;

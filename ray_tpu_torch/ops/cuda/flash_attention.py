@@ -10,13 +10,13 @@ Replaces the TPU kernels of `ray_tpu/ops/pallas/flash_attention.py`:
 - `_FlashAttention` mirrors the `jax.custom_vjp` wiring (:329-355).
 
 Each source's header says what bounds its kernels on the card and what the
-design does about it. The bf16 kernels of B1 and B3 read their inputs by
-TMA: `tma_layout` computes, here in Python, the dims, byte strides and box
-of each tensor map, and `fwd_layout` and `dkv_layout` the maps and the
-grid from the tiles that the library sets (`kernel_tiles`); the CUDA side
-encodes the maps from those numbers and launches that grid. For tensors
-on the CPU the wrappers compute the plain versions. For tensors on a CUDA
-device they launch the kernels or raise; they never fall back.
+design does about it. The bf16 kernels read their inputs by TMA:
+`tma_layout` computes, here in Python, the dims, byte strides and box of
+each tensor map, and `fwd_layout`, `dq_layout` and `dkv_layout` the maps
+and the grid from the tiles that the library sets (`kernel_tiles`); the
+CUDA side encodes the maps from those numbers and launches that grid. For
+tensors on the CPU the wrappers compute the plain versions. For tensors on
+a CUDA device they launch the kernels or raise; they never fall back.
 """
 
 from __future__ import annotations
@@ -37,10 +37,10 @@ BWD_SOURCE = "flash_attn_bwd.cu"
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID_Y = 65535
-# Rows of the tiles that the grid's y dimension (at most 65535) runs over:
-# B2's q tiles in bf16, every f32 kernel's q or kv tiles. The bf16 B1 and B3
-# have a 1-d grid over tiles that their library sets (`kernel_tiles`).
-_GRID_Y_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+# Rows of the f32 kernels' q or kv tiles, which the grid's y dimension (at
+# most 65535) runs over. The bf16 kernels have a 1-d grid over tiles that
+# their library sets (`kernel_tiles`).
+_F32_TILE_ROWS = 16
 _ENCODE_FAILED = 999  # the CUDA side's code for a tensor map the CUDA driver refused
 # Serving runs batches from several threads at once: each count is a
 # read-modify-write, so it takes a lock.
@@ -85,10 +85,9 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}/{k.device}/{v.device}")
-    rows = _GRID_Y_ROWS[q.dtype]
-    lengths = (q.shape[1],) if q.dtype == torch.bfloat16 else (q.shape[1], k.shape[1])
-    if -(-max(lengths) // rows) > _MAX_GRID_Y:
-        raise ValueError(f"sequence too long for the kernels' grid: {max(lengths)}")
+    longest = max(q.shape[1], k.shape[1])
+    if q.dtype == torch.float32 and -(-longest // _F32_TILE_ROWS) > _MAX_GRID_Y:
+        raise ValueError(f"sequence too long for the f32 kernels' grid: {longest}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_readable(t):
             raise ValueError(
@@ -139,7 +138,7 @@ def _tma_numbers(shape: Tuple[int, ...], strides: Tuple[int, ...], rows: int,
 
 @dataclasses.dataclass(frozen=True)
 class KernelLayout:
-    """What one bf16 launch of B1 or B3 is built from: the tensor maps'
+    """What one bf16 launch of B1, B2 or B3 is built from: the tensor maps'
     numbers by operand name (`tma_layout`) and the grid: one dimension, a
     block per tile of each head, the blocks of one head adjacent so that
     they share its streamed operands through L2."""
@@ -169,6 +168,16 @@ def fwd_layout(q, k, v, o, tiles: Sequence[int]) -> KernelLayout:
                         blocks=b * h * -(-sq // tiles[0]))
 
 
+def dq_layout(q, k, v, do, tiles: Sequence[int]) -> KernelLayout:
+    """B2: `tiles` holds the rows of the q, k, v and dO boxes, then their
+    columns, as `kernel_tiles("dq")` reads them from the library; a block
+    per q tile of each (b, h), the q heads of one kv head adjacent. Raises
+    ValueError where TMA cannot read an operand."""
+    b, sq, h, _ = q.shape
+    return KernelLayout(maps=_maps(("q", "k", "v", "do"), (q, k, v, do), tiles),
+                        blocks=b * h * -(-sq // tiles[0]))
+
+
 def dkv_layout(q, k, v, do, tiles: Sequence[int]) -> KernelLayout:
     """B3: `tiles` holds the rows of the q, k, v and dO boxes, then their
     columns, as `kernel_tiles("dkv")` reads them from the library; a block
@@ -181,14 +190,15 @@ def dkv_layout(q, k, v, do, tiles: Sequence[int]) -> KernelLayout:
 
 # Library, source and function that report each bf16 TMA kernel's tiles.
 _TILES_FROM = {"fwd": ("flash_attn_fwd", SOURCE, "flash_attn_fwd_tiles"),
+               "dq": ("flash_attn_bwd", BWD_SOURCE, "flash_attn_bwd_dq_tiles"),
                "dkv": ("flash_attn_bwd", BWD_SOURCE, "flash_attn_bwd_dkv_tiles")}
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_tiles(kernel: str) -> Tuple[int, ...]:
-    """The box rows of each operand of the bf16 `kernel` ("fwd" or "dkv"),
-    in launch order, then the boxes' columns, as its library sets them.
-    Builds the library."""
+    """The box rows of each operand of the bf16 `kernel` ("fwd", "dq" or
+    "dkv"), in launch order, then the boxes' columns, as its library sets
+    them. Builds the library."""
     lib_name, source, fn_name = _TILES_FROM[kernel]
     out = (ctypes.c_int * 5)()
     getattr(load_library(lib_name, [source]), fn_name)(out)
@@ -348,25 +358,31 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# Pointer arguments before the ints, and after them (strides, and for dk/dv
-# the tensor maps' numbers).
-_BWD_POINTERS = {"flash_attn_bwd_dq": (7, 1), "flash_attn_bwd_dkv": (8, 2)}
+# Pointer arguments of each entry point before its ints; after them come
+# two more, the strides and the tensor maps' numbers.
+_BWD_POINTERS = {"flash_attn_bwd_dq": 7, "flash_attn_bwd_dkv": 8}
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     """The backward library, its entry points' types declared once."""
     lib = load_library("flash_attn_bwd", [BWD_SOURCE])
-    for name, (n_ptr, n_tail) in _BWD_POINTERS.items():
+    for name, n_ptr in _BWD_POINTERS.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptr
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * n_tail
+            + [ctypes.c_void_p] * 2
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
     return lib
+
+
+def _delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * o) in f32 from the saved o, [B, H, Sq]: outside
+    the kernels, as the JAX package computes it outside Pallas."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 class _BwdLaunch:
@@ -394,9 +410,7 @@ class _BwdLaunch:
         if not _kernel_readable(do):
             do = do.clone(memory_format=torch.contiguous_format)
         lse = lse.contiguous()
-        # delta = rowsum(dO * o) in f32 from the saved o, outside the
-        # kernels, as the JAX package computes it outside Pallas.
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Sq]
+        delta = _delta(do, o)
         self.dq_out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         self.dk_out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         self.dv_out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -405,8 +419,9 @@ class _BwdLaunch:
             *(s for t in (q, k, v, do, self.dq_out, self.dk_out, self.dv_out)
               for s in t.stride()[:3])
         )
-        self._maps = (dkv_layout(q, k, v, do, kernel_tiles("dkv")).array()
-                      if q.dtype == torch.bfloat16 else None)
+        bf16 = q.dtype == torch.bfloat16
+        self._dq_maps = dq_layout(q, k, v, do, kernel_tiles("dq")).array() if bf16 else None
+        self._dkv_maps = dkv_layout(q, k, v, do, kernel_tiles("dkv")).array() if bf16 else None
         self._inputs = tuple(t.data_ptr() for t in self._keep)
         self._ints = (_DTYPE_CODES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
                       ctypes.cast(self._strides, ctypes.c_void_p))
@@ -415,7 +430,7 @@ class _BwdLaunch:
 
     def dq(self) -> None:
         err = self._lib.flash_attn_bwd_dq(
-            *self._inputs, self.dq_out.data_ptr(), *self._ints, *self._tail
+            *self._inputs, self.dq_out.data_ptr(), *self._ints, self._dq_maps, *self._tail
         )
         if err != 0:
             raise _launch_error("flash_attn_bwd_dq", err)
@@ -425,7 +440,7 @@ class _BwdLaunch:
     def dkv(self) -> None:
         err = self._lib.flash_attn_bwd_dkv(
             *self._inputs, self.dk_out.data_ptr(), self.dv_out.data_ptr(), *self._ints,
-            self._maps, *self._tail,
+            self._dkv_maps, *self._tail,
         )
         if err != 0:
             raise _launch_error("flash_attn_bwd_dkv", err)

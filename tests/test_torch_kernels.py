@@ -83,9 +83,11 @@ def test_flash_kernel_matches_plain_on_card(dtype, sq, kv, causal, d):
      (torch.bfloat16, 1, 1000, 8, 2, 64, False), (torch.float32, 1, 200, 4, 2, 128, True),
      (torch.float32, 1, 77, 4, 4, 64, False), (torch.bfloat16, 2, 1, 16, 4, 128, True),
      (torch.bfloat16, 2, 64, 16, 4, 128, True), (torch.bfloat16, 2, 200, 16, 4, 128, False),
-     (torch.bfloat16, 2, 1024, 16, 4, 128, False), (torch.bfloat16, 2, 1024, 16, 4, 64, True)],
+     (torch.bfloat16, 2, 1024, 16, 4, 128, False), (torch.bfloat16, 2, 1024, 16, 4, 64, True),
+     (torch.bfloat16, 2, 1000, 16, 4, 128, True)],
     ids=["bf16_gqa", "bf16_ragged", "bf16_d64_ragged_full", "f32_gqa", "f32_d64_ragged_full",
-         "bf16_s1", "bf16_s64", "bf16_s200_full", "bf16_gqa_full", "bf16_d64_gqa"],
+         "bf16_s1", "bf16_s64", "bf16_s200_full", "bf16_gqa_full", "bf16_d64_gqa",
+         "bf16_gqa_ragged"],
 )
 def test_flash_bwd_kernels_match_plain_on_card(dtype, b, sq, h, kv, d, causal):
     """B2 (dq) and B3 (dk, dv) against the plain backward computed in f32
@@ -110,10 +112,25 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, b, sq, h, kv, d, causal):
 
 
 @pytest.mark.gpu
+def test_dq_kernel_is_deterministic_at_training_shape():
+    """B2 sums each dq row over the kv tiles in one order inside one block
+    (no atomics): two launches on the same inputs give bitwise-equal dq."""
+    _need_card()
+    q, k, v, do = _qkv(16, 1024, 16, 16, 128, torch.bfloat16, seed=4)
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    call = flash._BwdLaunch(q, k, v, o, lse, do, True, 128 ** -0.5)
+    call.dq()
+    first = call.dq_out.clone()
+    call.dq()
+    torch.cuda.synchronize()
+    assert torch.equal(first, call.dq_out)
+
+
+@pytest.mark.gpu
 def test_bwd_permuted_do_at_training_shape():
-    """dO laid out [B, H, S, D] in memory at the training shape: the dk/dv
-    kernel's tensor map reads it by its strides (no copy), and all three
-    gradients match the plain backward."""
+    """dO laid out [B, H, S, D] in memory at the training shape: the dq and
+    dk/dv kernels' tensor maps read it by its strides (no copy), and all
+    three gradients match the plain backward."""
     _need_card()
     q, k, v, do = _qkv(16, 1024, 16, 16, 128, torch.bfloat16, seed=2)
     do = do.transpose(1, 2).contiguous().transpose(1, 2)

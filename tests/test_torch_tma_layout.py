@@ -1,7 +1,7 @@
 """The numbers the wrapper hands the CUDA side to build its TMA tensor maps
-(`tma_layout`, `fwd_layout`, `dkv_layout`), and what it refuses, on CPU tensors: the
-maps are encoded from these numbers on the card, so a wrong stride or box
-here would read the wrong rows there."""
+(`tma_layout`, `fwd_layout`, `dq_layout`, `dkv_layout`), and what it
+refuses, on CPU tensors: the maps are encoded from these numbers on the
+card, so a wrong stride or box here would read the wrong rows there."""
 
 import pytest
 import torch
@@ -13,6 +13,7 @@ BOX_COLS = 64  # 128-byte swizzle: 64 bf16 columns
 # The tiles the libraries report (`flash.kernel_tiles`, which needs the
 # card): box rows of each operand in launch order, then the box columns.
 FWD_TILES = (128, 128, 128, 64, BOX_COLS)  # q, k, v, o
+DQ_TILES = (128, 64, 64, 128, BOX_COLS)  # q, k, v, dO
 DKV_TILES = (64, 128, 128, 64, BOX_COLS)  # q, k, v, dO
 
 
@@ -85,6 +86,14 @@ def test_kernel_layouts_tiles_grids_and_order():
     assert list(fwd.maps) == ["q", "k", "v", "o"]
     assert [m[8] for m in fwd.maps.values()] == [128, 128, 128, 64]
     assert fwd.blocks == b * h * 8
+    # B2: a 128-row q tile per block (the q and dO boxes), 64-row kv tiles
+    # streamed; a block per q tile of each (b, h), the 104-row tail included.
+    dq = flash.dq_layout(q, k, k, do, DQ_TILES)
+    assert list(dq.maps) == ["q", "k", "v", "do"]
+    assert [m[8] for m in dq.maps.values()] == [128, 64, 64, 128]
+    assert dq.maps["k"][:4] == (d, s, hkv, b)
+    assert dq.blocks == b * h * 8
+    assert list(dq.array())[27:] == [*flash.tma_layout(do, 128, BOX_COLS), dq.blocks]
     # B3: a 128-row kv tile per block, 64-row q and dO tiles streamed; a
     # block per kv tile of each (b, h_kv).
     dkv = flash.dkv_layout(q, k, k, do, DKV_TILES)
@@ -104,6 +113,7 @@ def test_grids_have_one_block_per_tile_of_each_head(s, blocks):
     q = torch.empty((2, s, 4, 64), dtype=BF16)
     k = torch.empty((2, s, 2, 64), dtype=BF16)
     assert flash.fwd_layout(q, k, k, q, FWD_TILES).blocks == 2 * 4 * blocks
+    assert flash.dq_layout(q, k, k, q, DQ_TILES).blocks == 2 * 4 * blocks
     assert flash.dkv_layout(q, k, k, q, DKV_TILES).blocks == 2 * 2 * blocks
 
 
@@ -113,20 +123,27 @@ def test_kernel_layouts_raise_on_an_unreadable_operand():
     with pytest.raises(ValueError):
         flash.fwd_layout(q, bad, q, q, FWD_TILES)
     with pytest.raises(ValueError):
+        flash.dq_layout(q, q, bad, q, DQ_TILES)
+    with pytest.raises(ValueError):
         flash.dkv_layout(q, q, q, bad, DKV_TILES)
 
 
 @pytest.mark.parametrize("dtype,rows", [(BF16, 64), (torch.float32, 16)])
 def test_grid_limit_follows_the_tiles(dtype, rows):
-    """The grid's y dimension runs over tiles of B2's 64 q rows in bf16 and
-    of 16 rows in f32 (the bf16 B1 and B3 have a 1-d grid): the sequence
-    meets the 65535 limit there."""
-    assert flash._GRID_Y_ROWS[dtype] == rows
+    """The f32 kernels' grid runs over 16-row tiles in its y dimension, so
+    an f32 sequence meets the 65535 limit at 16 x 65535 rows. Every bf16
+    kernel has a 1-d grid, so a bf16 sequence past 64 x 65535 rows is not
+    refused for the grid."""
     ok = torch.empty((1, rows * 65535, 1, 128), dtype=dtype, device="meta")
     flash._check_kernel_inputs(ok, ok, ok)
-    too_long = torch.empty((1, rows * 65535 + 1, 1, 128), dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="grid"):
-        flash._check_kernel_inputs(too_long, too_long, too_long)
+    longer = torch.empty((1, rows * 65535 + 1, 1, 128), dtype=dtype, device="meta")
+    if dtype == BF16:
+        flash._check_kernel_inputs(longer, longer, longer)
+        assert flash.dq_layout(longer, longer, longer, longer, DQ_TILES).blocks == 32768
+    else:
+        assert flash._F32_TILE_ROWS == rows
+        with pytest.raises(ValueError, match="grid"):
+            flash._check_kernel_inputs(longer, longer, longer)
 
 
 def test_broadcast_operands_are_refused_or_copied():
