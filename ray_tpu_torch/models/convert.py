@@ -20,15 +20,26 @@ def params_from_numpy(
     """The JAX `init_params` tree with every leaf a numpy array -> the port's
     parameters: the same names and shapes, no transposes, on `device`. Leaves
     keep their type unless `dtype` is given (a server may pass the compute
-    dtype to cast once at load)."""
+    dtype to cast once at load). A bf16 leaf comes over bit for bit."""
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
             out[name] = params_from_numpy(leaf, device=device, dtype=dtype)
             continue
-        t = torch.tensor(np.asarray(leaf), device=device)  # copies
+        t = _tensor(np.asarray(leaf), device)
         out[name] = t if dtype is None else t.to(dtype)
     return out
+
+
+def _tensor(leaf: np.ndarray, device) -> torch.Tensor:
+    """A copy of `leaf` on `device`. numpy has no bf16 of its own: the JAX
+    package's bf16 leaves are `ml_dtypes.bfloat16`, which torch cannot read,
+    so their bits are read as int16 and viewed as torch.bfloat16, with no
+    rounding on the way."""
+    if leaf.dtype.name == "bfloat16":
+        bits = torch.tensor(leaf.view(np.int16), device=device)  # copies
+        return bits.view(torch.bfloat16)
+    return torch.tensor(leaf, device=device)  # copies
 
 
 def state_from_numpy(

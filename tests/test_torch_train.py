@@ -252,3 +252,69 @@ def test_state_from_numpy_starts_at_step_zero():
     assert state["step"] == 0 and state["opt_state"]["count"] == 0
     assert all(float(m.abs().sum()) == 0.0 for m in state["opt_state"]["mu"])
     assert state["opt_state"]["nu"][0].dtype == torch.bfloat16  # the params' dtype
+
+
+# The step at bf16 parameters (f32 compute) against the JAX step. The loss of
+# step 1 agrees to f32 rounding; steps 2 and 3 start from parameters that
+# differ where the two frameworks round a bf16 moment or update differently
+# (measured 8e-6 relative by step 3). The JAX gradient norm is summed in bf16
+# (optax.global_norm in the gradients' type), the port's in f32: within one
+# bf16 ulp of the norm, 2^-7 relative (measured 2.6e-3). Parameters: where an
+# update rounds to the other neighbour, a bf16 parameter moves by one ulp of
+# itself; measured at most 2e-3 of each leaf's largest |value| and 2.6% of the
+# elements, so each leaf is held to 1e-2 of its largest |value| and 5% of its
+# elements differing at all.
+BF16_LOSS_RTOL = 1e-4
+BF16_GRAD_NORM_RTOL = 2.0 ** -7
+BF16_PARAM_REL = 1e-2
+BF16_PARAM_SHARE = 0.05
+
+
+def test_bf16_tree_carries_over_bit_exactly():
+    """The numpy leaves of a bf16 JAX tree (ml_dtypes.bfloat16) come over
+    as torch.bfloat16 with the same bits."""
+    cfg = jax_tf.TransformerConfig.tiny(param_dtype=jnp.bfloat16)
+    tree = jax.tree_util.tree_map(np.asarray, jax_tf.init_params(cfg, jax.random.PRNGKey(0)))
+    ours = jax.tree_util.tree_leaves(params_from_numpy(tree, device="cpu"))
+    theirs = jax.tree_util.tree_leaves(tree)
+    assert len(ours) == len(theirs) == 12
+    for a, b in zip(ours, theirs):
+        assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(a.view(torch.int16).numpy().view(np.uint16),
+                                      b.view(np.uint16))
+    state = state_from_numpy(tree, TransformerConfig.tiny(param_dtype=torch.bfloat16),
+                             device="cpu")
+    np.testing.assert_array_equal(
+        state["params"]["lm_head"].detach().view(torch.int16).numpy().view(np.uint16),
+        tree["lm_head"].view(np.uint16))
+
+
+def test_bf16_param_training_matches_jax_train_context():
+    """Three steps at param_dtype bf16 (moments in bf16 too, as optax keeps
+    them in the params' type) against the JAX LMTrainContext (dp, one
+    device), from the same bf16 tree, on one batch."""
+    jax_ctx = jax_lm.LMTrainContext(
+        jax_tf.TransformerConfig.tiny(param_dtype=jnp.bfloat16),
+        build_mesh(MeshSpec(data=1), devices=jax.devices()[:1]), "dp",
+    )
+    jax_state = jax_ctx.init_state(0)
+    ctx = LMTrainContext(TransformerConfig.tiny(param_dtype=torch.bfloat16), device="cpu")
+    state = state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jax_state["params"]), ctx.config, device="cpu"
+    )
+    assert state["opt_state"]["mu"][0].dtype == torch.bfloat16
+    batch = _batch(3, b=4, s=32)
+    for _ in range(3):
+        jax_state, jm = jax_ctx.train_step(jax_state, batch)
+        state, m = ctx.train_step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=BF16_LOSS_RTOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=BF16_GRAD_NORM_RTOL)
+    theirs = jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jax_state["params"]))
+    ours = jax.tree_util.tree_leaves(state["params"])
+    for a, b in zip(ours, theirs):
+        assert a.dtype == torch.bfloat16
+        a = a.detach().float().numpy()
+        assert np.abs(a - b).max() <= BF16_PARAM_REL * np.abs(b).max()
+        assert (a != b).mean() <= BF16_PARAM_SHARE
