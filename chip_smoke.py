@@ -40,7 +40,16 @@ printing the final line:
    `LMTrainContext` with random weights from a seeded generator: 2 warm-up
    and 5 timed steps with exact kernel launch counts per step, one step with
    remat_policy=None, a profile of one step, and the first step recomputed
-   from a copy of the initial state with the plain reference attention.
+   from a copy of the initial state with the plain reference attention;
+6. the parallel slice on the one card (no multi-GPU number): the ring
+   attention's chunk schedule for a ring of 4, run in one process through
+   the ring's own step and merge functions at bench.py's head attention
+   shape [16, 1024, 16, 128] and GQA 16/4 at batch 4 (10 launches of each
+   kernel), against whole-sequence B1, B2 and B3 and the plain f32
+   versions, with its times beside theirs; then `LMTrainContext` under
+   dp, fsdp, tp, fsdp_tp, sp and ep on a one-rank NCCL mesh at bench.py's
+   head configuration, 2 steps each with exact launch counts, the first
+   loss against the single-device step's, step times and peak memory.
 
 Prints JSON lines of the serving and training numbers, the profiles and the
 kernels, and last {"ok": true, "device": {...}}.
@@ -60,11 +69,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch import serve
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, forward, init_params
 from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as flash
+from ray_tpu_torch.ops.ring_attention import ring_schedule
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
 PEAK_BF16_FLOPS = 989e12
@@ -724,6 +736,160 @@ def phase_training(card: str) -> tuple:
     return training, per_step
 
 
+# The ring's chunk schedule at bench.py's head attention shape, split as a
+# ring of RING_N would split it: (name, B, H, Hkv).
+RING_N = 4
+RING_CASES = [("mha_16_16", TRAIN_BATCH, 16, 16), ("gqa_16_4", 4, 16, 4)]
+# The ring's output against whole-sequence B1, both bf16: each row merges
+# up to 4 partials, each rounded to bf16 before the f32 merge, where B1
+# rounds once; 2e-2 is B1's own bound against the plain version (TOL), and
+# the ring is held to it against the plain f32 version too. Its lse comes
+# from the f32 partials' lse (TOL's 1e-3). Gradients sum 4 bf16 partials a
+# chunk in f32 and round the sum to bf16, where the whole-sequence kernels
+# round once: the two differ by up to one bf16 ulp of the largest
+# |gradient| (2^-7 of it at worst; 0.51% measured at the first run, where a
+# first bound of 0.5% was set too tight), so 1e-2 of the largest
+# |gradient| of the whole-sequence kernels; and within BWD_REL_TOL of the
+# plain backward, as B2 and B3 are held.
+RING_GRAD_REL_TOL = 1e-2
+# The sharded step at world size 1 against the single-device step on the
+# same weights and batch: the same kernels and products, the loss in
+# another form (a sum over the token count, not a mean).
+SHARDED_LOSS_RTOL = 1e-3
+STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "sp", "ep")
+
+
+def ring_schedule_check(name, b, h, hkv, g) -> tuple:
+    """The ring's chunk schedule (one process, RING_N virtual ranks)
+    against whole-sequence B1, B2 and B3 and the plain f32 versions, with
+    its launch counts and times beside the whole-sequence kernels'."""
+    q, k, v = rand_qkv(g, b, TRAIN_SEQ, h, hkv, 128, torch.bfloat16)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    whole = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    zero_launch_counts()
+    ring_o, ring_lse, *ring_grads = ring_schedule(q, k, v, do, n=RING_N, causal=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_p, lse_p = flash.flash_attention_fwd_plain(*f32[:3], causal=True)
+    plain = flash.flash_attention_bwd_plain(*f32[:3], o_p, lse_p, f32[3], causal=True)
+    errs = {
+        "o_vs_whole": (ring_o.float() - o.float()).abs().max().item(),
+        "o_vs_plain": (ring_o.float() - o_p).abs().max().item(),
+        "whole_o_vs_plain": (o.float() - o_p).abs().max().item(),
+        "lse_vs_whole": (ring_lse - lse).abs().max().item(),
+        "lse_vs_plain": (ring_lse - lse_p).abs().max().item(),
+    }
+    for gname, ours, ref, ref_p in zip(("dq", "dk", "dv"), ring_grads, whole, plain):
+        check(bool(torch.isfinite(ours).all()), f"ring {name}: non-finite {gname}")
+        errs[f"{gname}_vs_whole"] = ((ours.float() - ref.float()).abs().max()
+                                     / ref.float().abs().max()).item()
+        errs[f"{gname}_vs_plain"] = ((ours.float() - ref_p).abs().max()
+                                     / ref_p.abs().max()).item()
+    ok = (launches == (10, 10, 10) and errs["o_vs_whole"] <= TOL[torch.bfloat16][0]
+          and errs["o_vs_plain"] <= TOL[torch.bfloat16][0]
+          and max(errs["lse_vs_whole"], errs["lse_vs_plain"]) <= TOL[torch.bfloat16][1]
+          and all(errs[f"{n}_vs_whole"] <= RING_GRAD_REL_TOL for n in ("dq", "dk", "dv"))
+          and all(errs[f"{n}_vs_plain"] <= BWD_REL_TOL[torch.bfloat16] for n in ("dq", "dk", "dv")))
+    print(f"ring schedule {name}: {b}x{TRAIN_SEQ}x{h}/{hkv}x128 bf16 causal, {RING_N} chunks: "
+          f"launches (fwd, dq, dkv) {launches} (expected (10, 10, 10)) {json.dumps(errs)} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"ring schedule {name} disagrees with the whole-sequence kernels")
+    del f32, o_p, lse_p, plain, ring_o, ring_lse, ring_grads
+    torch.cuda.empty_cache()
+    def whole_fwd_bwd():  # B1, the delta pre-pass, B2 and B3, as a training step runs them
+        o_, lse_ = flash.flash_attention_fwd(q, k, v, causal=True)
+        flash.flash_attention_bwd(q, k, v, o_, lse_, do, causal=True)
+
+    fwd_bound = attention_bound(q, k, causal=True)
+    bwd_bounds = backward_bounds(q, k, causal=True)
+    times = {
+        "ring_fwd_ms": time_ms(lambda: ring_schedule(q, k, v, n=RING_N, causal=True), iters=20),
+        "ring_fwd_bwd_ms": time_ms(lambda: ring_schedule(q, k, v, do, n=RING_N, causal=True),
+                                   iters=20),
+        "whole_fwd_ms": time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True), iters=20),
+        "whole_fwd_bwd_ms": time_ms(whole_fwd_bwd, iters=20),
+        "fwd_bound_ms": fwd_bound[0],
+        "fwd_bwd_bound_ms": fwd_bound[0] + bwd_bounds["dq"][0] + bwd_bounds["dkv"][0],
+    }
+    times["ring_fwd_graph_ms"] = graph_ms(lambda: ring_schedule(q, k, v, n=RING_N, causal=True),
+                                          calls=5)
+    times["whole_fwd_graph_ms"] = graph_ms(
+        lambda: flash.flash_attention_fwd(q, k, v, causal=True), calls=5)
+    # A backward binds the stream it is prepared on: graph_ms captures on
+    # this side stream, where each call prepares its own.
+    side = torch.cuda.Stream()
+    times["ring_fwd_bwd_graph_ms"] = graph_ms(
+        lambda: ring_schedule(q, k, v, do, n=RING_N, causal=True), calls=5, stream=side)
+    times["whole_fwd_bwd_graph_ms"] = graph_ms(whole_fwd_bwd, calls=5, stream=side)
+    print(f"ring schedule {name} times: {json.dumps(times)}", flush=True)
+    return launches, {"shape": [b, TRAIN_SEQ, h, hkv, 128], "chunks": RING_N,
+                      "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+                      "errors": errs, **times}
+
+
+def phase_parallel(card: str, training: dict) -> tuple:
+    """(a) the ring's chunk schedule at full width in one process; (b) the
+    sharded training step under every ported strategy at world size 1, a
+    one-rank NCCL group on the card: its first loss against the
+    single-device step's on the same weights and batch, its launches, step
+    time and peak memory. The card's machine has one card, so no number
+    here is of more than one."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    ring, ring_launches = {}, None
+    for name, b, h, hkv in RING_CASES:
+        launches, ring[name] = ring_schedule_check(name, b, h, hkv, g)
+        ring_launches = ring_launches or launches
+    torch.cuda.empty_cache()
+
+    mesh = build_mesh(MeshSpec(data=1), device_type="cuda")
+    cfg = bench_config()
+    toks = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    per_step = (cfg.n_layers,) * 3
+    single_loss = training["losses"][0]
+    steps = {}
+    try:
+        for strategy in STRATEGIES:
+            ctx = LMTrainContext(cfg, mesh, strategy)
+            state = ctx.init_state(SEED)  # the single-device step's weights
+            batch = ctx.make_batch({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_s, losses = [], []
+            for i in range(2):
+                t0 = time.perf_counter()
+                state, m = counted_step(ctx, state, batch, per_step, f"{strategy} step {i}")
+                losses.append(float(m["loss"]))  # waits for the step
+                step_s.append(time.perf_counter() - t0)
+            rel = abs(losses[0] - single_loss) / single_loss
+            steps[strategy] = {"step_s": step_s, "losses": losses,
+                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                               "first_loss_rel_diff": rel}
+            print(f"sharded step {strategy} (world size 1): first loss {losses[0]:.5f} vs "
+                  f"single-device {single_loss:.5f} (rel {rel:.2e}, tol {SHARDED_LOSS_RTOL}); "
+                  f"step s {step_s}; peak {steps[strategy]['peak_mem_gb']:.2f} GB", flush=True)
+            check(rel <= SHARDED_LOSS_RTOL, f"{strategy}: first loss disagrees with one device")
+            check(all(np.isfinite(losses)), f"{strategy}: non-finite loss")
+            del ctx, state, batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    parallel = {
+        "card": card,
+        "world_size": 1,
+        "note": "one card: ring schedule in one process, sharded step at world size 1 "
+                "(collectives over one rank are skipped); no multi-GPU number",
+        "ring_schedule": ring,
+        "sharded_step": {"config": training["config"].replace("dp on one card", "on a "
+                                                              "one-rank mesh"),
+                         "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
+                         "single_device_first_loss": single_loss, "strategies": steps},
+    }
+    return parallel, ring_launches, per_step
+
+
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
@@ -868,6 +1034,10 @@ def main() -> int:
     train_timing = phase_backward(g)
     training, train_launches = phase_training(card)
     print(json.dumps({"training": training}), flush=True)
+    torch.cuda.empty_cache()
+
+    parallel, ring_launches, sharded_launches = phase_parallel(card, training)
+    print(json.dumps({"parallel": parallel}), flush=True)
 
     source = "ray_tpu_torch/csrc/"
     kernels = [
@@ -880,7 +1050,9 @@ def main() -> int:
                    "overlapping the next S, 128-row kv tiles, o out through shared memory "
                    "by TMA store",
          "launches": serve_launches,
-         "launches_by_path": {"serving": serve_launches, "train_step": train_launches[0]},
+         "launches_by_path": {"serving": serve_launches, "train_step": train_launches[0],
+                              "ring_schedule": ring_launches[0],
+                              "sharded_train_step": sharded_launches[0]},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
@@ -891,7 +1063,9 @@ def main() -> int:
                    "registers, k read transposed), S/dP of the next tile issued ahead of "
                    "dS k of this one",
          "launches": train_launches[1],
-         "launches_by_path": {"serving": 0, "train_step": train_launches[1]},
+         "launches_by_path": {"serving": 0, "train_step": train_launches[1],
+                              "ring_schedule": ring_launches[1],
+                              "sharded_train_step": sharded_launches[1]},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
@@ -901,7 +1075,9 @@ def main() -> int:
                    "cp.async a tile ahead, wgmma for S^T, dP^T (shared memory) and dV, dK "
                    "(P^T, dS^T from registers)",
          "launches": train_launches[2],
-         "launches_by_path": {"serving": 0, "train_step": train_launches[2]},
+         "launches_by_path": {"serving": 0, "train_step": train_launches[2],
+                              "ring_schedule": ring_launches[2],
+                              "sharded_train_step": sharded_launches[2]},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
     for entry in kernels:

@@ -1,5 +1,6 @@
 """ray_tpu_torch.models: the port's model families (the Llama-family
-decoder on one device: its forward, and its training step)."""
+decoder: its forward and its training step, on one device or sharded over a
+mesh)."""
 
 from ray_tpu_torch.models.convert import params_from_numpy, state_from_numpy
 from ray_tpu_torch.models.lm import LMTrainContext, cross_entropy_loss, default_optimizer
@@ -8,6 +9,7 @@ from ray_tpu_torch.models.transformer import (
     forward,
     init_params,
     param_axes,
+    param_shapes,
 )
 
 __all__ = [
@@ -18,6 +20,7 @@ __all__ = [
     "forward",
     "init_params",
     "param_axes",
+    "param_shapes",
     "params_from_numpy",
     "state_from_numpy",
 ]

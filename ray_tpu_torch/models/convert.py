@@ -3,12 +3,14 @@ training state from them."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.models.lm import _new_state, default_optimizer
+from ray_tpu_torch.models.transformer import param_axes
+from ray_tpu_torch.parallel.sharding import Rules, resolve_rules, shard_tree
 
 
 def params_from_numpy(
@@ -48,10 +50,17 @@ def state_from_numpy(
     optimizer=None,
     *,
     device,
+    mesh=None,
+    strategy: Union[str, Rules] = "dp",
 ) -> Dict[str, Any]:
     """A step-0 training state for `LMTrainContext.train_step` from the JAX
     `init_params` tree (numpy leaves): the parameters in
     `config.param_dtype` on `device`, and zero optimizer moments (those of
-    `optimizer`, by default `default_optimizer()`)."""
+    `optimizer`, by default `default_optimizer()`). With a `mesh`, every
+    rank passes the same full tree and keeps its shards of it under
+    `strategy`'s rules, as `LMTrainContext(config, mesh, strategy)` holds
+    its state."""
     params = params_from_numpy(params_tree, device=device, dtype=config.param_dtype)
+    if mesh is not None:
+        params = shard_tree(params, param_axes(config), resolve_rules(strategy), mesh)
     return _new_state(params, optimizer or default_optimizer())

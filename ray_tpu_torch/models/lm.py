@@ -1,23 +1,43 @@
-"""Language-model training step, port of `ray_tpu/models/lm.py` on one
-device: the loss, the default optimizer and `LMTrainContext`.
+"""Language-model training step, port of `ray_tpu/models/lm.py`: the loss,
+the default optimizer and `LMTrainContext`, on one device or sharded over a
+mesh by a strategy's rules.
 
 The JAX package's step is a jitted pure function whose state is donated; the
 port runs eagerly and updates the parameters and the optimizer's moments in
-place, which is what donation lets XLA do.
+place, which is what donation lets XLA do. Under a mesh each rank holds its
+shards of the state and steps on its slice of the batch; the collectives
+that XLA derives from the shardings are issued by the forward
+(`models/transformer.py`) and by the step (the loss's token count, the
+gradients' sums, the gradient norm).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
+    _as_axes,
     _leaves,
     _resolve_device,
     forward,
     init_params,
+    param_axes,
+    param_shapes,
+)
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_axis_sizes
+from ray_tpu_torch.parallel.sharding import (
+    Rules,
+    gather_tensor,
+    local_placements,
+    resolve_rules,
+    shard_tensor,
+    shard_tree,
+    tree_map,
 )
 
 
@@ -42,8 +62,10 @@ def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 class Optimizer(NamedTuple):
     """The port's form of an optax GradientTransformation whose updates are
     applied in place, on lists of tensors (a parameter tree's leaves):
-    `init(params) -> opt_state` and `update(grads, opt_state, params) ->
-    opt_state`, which changes `params` and the state's moments in place."""
+    `init(params) -> opt_state` and `update(grads, opt_state, params,
+    grad_norm=None) -> opt_state`, which changes `params` and the state's
+    moments in place. `grad_norm` is the gradients' global norm where the
+    caller has it, and must be given where the leaves are shards."""
 
     init: Callable[[List[torch.Tensor]], Dict]
     update: Callable[[List[torch.Tensor], Dict, List[torch.Tensor]], Dict]
@@ -64,10 +86,13 @@ def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) ->
         }
 
     @torch.no_grad()
-    def update(grads: List[torch.Tensor], opt_state: Dict, params: List[torch.Tensor]) -> Dict:
+    def update(grads: List[torch.Tensor], opt_state: Dict, params: List[torch.Tensor],
+               grad_norm: Optional[torch.Tensor] = None) -> Dict:
         grads = list(grads)
+        if grad_norm is None:
+            grad_norm = _global_norm(grads)
         # clip_by_global_norm: g * (max_norm / max(|g|, max_norm)), in place.
-        torch._foreach_mul_(grads, max_norm / torch.clamp(_global_norm(grads), min=max_norm))
+        torch._foreach_mul_(grads, max_norm / torch.clamp(grad_norm, min=max_norm))
         # scale_by_adam, with bias correction at count + 1.
         count = opt_state["count"] + 1
         mu, nu = opt_state["mu"], opt_state["nu"]
@@ -95,59 +120,170 @@ def _new_state(params: Dict, optimizer: Optimizer) -> Dict[str, Any]:
     return {"params": params, "opt_state": optimizer.init(leaves), "step": 0}
 
 
-class LMTrainContext:
-    """Init/train-step bundle for one config on one device: the port of the
-    JAX package's `LMTrainContext` with strategy "dp" on a one-device mesh.
+class _PlacedBatch(dict):
+    """A batch `make_batch` has already cut to this rank and moved to the
+    device, which `train_step` takes as it is."""
 
-    Runs on the CUDA card unless `device` names another (the tests pass
-    "cpu"); with no card and no device it raises."""
+
+class LMTrainContext:
+    """Init/train-step bundle for one (config, mesh, strategy), the port of
+    the JAX package's `LMTrainContext`.
+
+    Without a mesh the step runs on one device: the card unless `device`
+    names another (the tests pass "cpu"); with no card and no device it
+    raises. With a mesh (`build_mesh`, a DeviceMesh of the canonical axes)
+    every rank of it builds one context and calls each method in step: the
+    state holds the rank's shards (`shard_tree` by the strategy's rules),
+    the optimizer's moments mirror them, and the device is the mesh's.
+
+    `strategy` is a preset name or a rules table; every preset but the
+    pipelined "pp" and "pp_fsdp" (ROADMAP A9) is ported. The default is
+    "dp", where the JAX package's is "fsdp": without a mesh the two are the
+    same step.
+    """
 
     def __init__(
         self,
         config: TransformerConfig,
-        mesh=None,
-        *,
-        strategy: str = "dp",
+        mesh: Optional[DeviceMesh] = None,
+        strategy: Union[str, Rules] = "dp",
         optimizer: Optional[Optimizer] = None,
+        *,
         device=None,
     ):
-        if mesh is not None or strategy != "dp":
-            raise NotImplementedError(
-                f"strategy {strategy!r} and meshes come with the multi-device slice of "
-                "the port (ROADMAP A5); this slice trains with 'dp' on one device"
-            )
         self.config = config
-        self.device = _resolve_device(device)
+        self.rules = resolve_rules(strategy)
+        if self.rules.get("layers") is not None:
+            raise NotImplementedError(
+                f"strategy {strategy!r} pipelines the layer stack; pipeline parallelism "
+                "('pp', 'pp_fsdp') is not ported yet: ROADMAP A9"
+            )
         self.optimizer = optimizer or default_optimizer()
+        self.mesh = mesh
+        if mesh is None:
+            self.device = _resolve_device(device)
+            return
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh (build_mesh), got {type(mesh)}")
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+        if device is not None and torch.device(device).type != self.device.type:
+            raise ValueError(f"device {device!r} is not the mesh's ({mesh.device_type})")
+        sizes = mesh_axis_sizes(mesh)
+        # The mesh axes that split the batch and the sequence (each must
+        # divide), and those that split each parameter leaf.
+        self._batch_place = tuple(
+            tuple(a for a in _as_axes(self.rules.get(name)) if sizes[a] > 1)
+            for name in ("act_batch", "act_seq")
+        )
+        self.batch_axes = _in_order(a for axes in self._batch_place for a in axes)
+        self.placements = local_placements(param_shapes(config), param_axes(config),
+                                           self.rules, mesh)
 
     # -- public API -------------------------------------------------------
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
+        """The full tree from a seeded generator, the same on every rank,
+        then this rank's shards of it, and zero moments of their shape."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return _new_state(init_params(self.config, gen, device=self.device), self.optimizer)
+        params = init_params(self.config, gen, device=self.device)
+        if self.mesh is not None:
+            params = shard_tree(params, param_axes(self.config), self.rules, self.mesh)
+        return _new_state(params, self.optimizer)
 
     def make_batch(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch (dict of [B, S] numpy arrays or tensors) on the
-        device."""
-        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        device. Under a mesh every rank passes the same global batch and
+        keeps its slice: B over act_batch's mesh axes, S over act_seq's, as
+        the JAX package's `make_batch` places the shards."""
+        out = _PlacedBatch()
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if self.mesh is not None:
+                t = shard_tensor(t, self._batch_place, self.mesh)
+            out[k] = t.to(self.device)
+        return out
 
     def train_step(self, state, batch) -> Tuple[Dict, Dict]:
         """One step of loss, gradients, clipping and AdamW. Updates
         `state`'s tensors in place and returns (state, metrics) with metrics
-        `loss`, `grad_norm` (before clipping) and `step`; the metrics stay on
-        the device until read."""
-        batch = self.make_batch(batch)
+        `loss`, `grad_norm` (before clipping) and `step`, global and the
+        same on every rank; the metrics stay on the device until read."""
+        if not isinstance(batch, _PlacedBatch):
+            batch = self.make_batch(batch)
         params = state["params"]
         leaves = _leaves(params)
-        logits = forward(params, batch["tokens"], self.config)
-        loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
-        del logits
-        grads = torch.autograd.grad(loss, leaves)
-        grad_norm = _global_norm(list(grads))
-        opt_state = self.optimizer.update(grads, state["opt_state"], leaves)
+        if self.mesh is None:
+            logits = forward(params, batch["tokens"], self.config)
+            loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+            del logits
+            grads = torch.autograd.grad(loss, leaves)
+            grad_norm = _global_norm(list(grads))
+        else:
+            logits = forward(params, batch["tokens"], self.config, rules=self.rules,
+                             mesh=self.mesh)
+            loss = self._rank_loss(logits, batch)
+            del logits
+            grads = torch.autograd.grad(loss, leaves)
+            grad_norm = self._reduce_grads(grads, params)
+            loss = self._sum_over(loss.detach(), self.batch_axes)
+        opt_state = self.optimizer.update(grads, state["opt_state"], leaves, grad_norm)
         step = state["step"] + 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": step}
         return {"params": params, "opt_state": opt_state, "step": step}, metrics
 
     def apply(self, params, tokens) -> torch.Tensor:
+        """Logits [B, S, vocab] f32 of a global [B, S] batch of tokens; under
+        a mesh every rank passes the same tokens and gets all the logits."""
         with torch.no_grad():
-            return forward(params, torch.as_tensor(tokens, device=self.device), self.config)
+            if self.mesh is None:
+                return forward(params, torch.as_tensor(tokens, device=self.device), self.config)
+            local = self.make_batch({"tokens": tokens})["tokens"]
+            logits = forward(params, local, self.config, rules=self.rules, mesh=self.mesh)
+            return gather_tensor(logits, self._batch_place + ((),), self.mesh)
+
+    # -- the step's collectives -------------------------------------------
+    def _sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """`x` summed over the ranks of the mesh axes `axes`, in place."""
+        for a in axes:
+            dist.all_reduce(x, group=self.mesh.get_group(a))
+        return x
+
+    def _rank_loss(self, logits: torch.Tensor, batch) -> torch.Tensor:
+        """This rank's share of the global masked mean: its tokens' summed
+        loss over the token count of the whole batch, so that the ranks'
+        shares, and their gradients, sum to the global loss's."""
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, batch["targets"][..., None].long())[..., 0]
+        mask = batch.get("mask")
+        if mask is None:
+            total = -ll.sum()
+            count = torch.tensor(float(ll.numel()), device=ll.device)
+        else:
+            mask = mask.to(torch.float32)
+            total = -(ll * mask).sum()
+            count = mask.sum().detach()
+        count = self._sum_over(count, self.batch_axes)
+        return total / torch.clamp(count, min=1.0)
+
+    def _reduce_grads(self, grads, params) -> torch.Tensor:
+        """Sum each gradient of the leaves of `params`, in place, over the
+        batch axes that do not split its leaf (fsdp's gather already summed
+        over its axis; over `tensor` the gradient is never summed), and
+        return the global norm: each leaf's squares summed over the axes
+        that split it."""
+        places = _leaves(tree_map(lambda _, place: place, params, self.placements))
+        squares: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for g, place in zip(grads, places):
+            axes = _in_order(a for split in place for a in split)
+            self._sum_over(g, [a for a in self.batch_axes if a not in axes])
+            sq = torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+            squares[axes] = squares[axes] + sq if axes in squares else sq
+        total = sum(self._sum_over(sq, axes) for axes, sq in sorted(squares.items()))
+        return torch.sqrt(total)
+
+
+def _in_order(axes) -> Tuple[str, ...]:
+    """Mesh axes, each once, in the mesh's order (every rank issues the
+    collectives over them in the same order)."""
+    axes = set(axes)
+    return tuple(a for a in AXIS_ORDER if a in axes)

@@ -1,5 +1,5 @@
 """Flagship model: Llama-family decoder-only transformer, port of
-`ray_tpu/models/transformer.py` (single-device path).
+`ray_tpu/models/transformer.py`.
 
 - Parameters are a plain dict tree with the JAX package's names, shapes and
   layouts (no transposes): `wq` is [L, E, H, Dh], `wo` [L, H, Dh, E], the
@@ -18,20 +18,32 @@
   that live from the forward to the backward are those the JAX package's
   checkpoint policies save (`_remat_layer`).
 
-Sharding rules, ring attention and pipelining belong to the multi-device
-slice of the port.
+- Under sharding rules and a mesh (`forward(..., rules=, mesh=)`) each rank
+  runs the forward on its shards (`ray_tpu_torch.parallel.sharding`) and
+  issues the collectives that XLA inserts for the JAX package at its
+  sharding constraints: a per-use all-gather of fsdp-split weights inside
+  the remat segment that uses them; Megatron column- and row-parallel
+  products over the tensor axis for heads and mlp, with a vocab-parallel
+  embedding and lm_head; a sequence-split residual stream with global RoPE
+  positions and ring attention under `sp` (`_Sharded`). Pipelining is not
+  ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.ring_attention import ring_attention, select_kv_heads
 from ray_tpu_torch.ops.rotary import apply_rope
+from ray_tpu_torch.parallel.collectives import copy_to, gather_from, gather_shards, reduce_from
+from ray_tpu_torch.parallel.mesh import mesh_axis_sizes
+from ray_tpu_torch.parallel.sharding import Rules, local_placements, shard_index, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +67,8 @@ class TransformerConfig:
     # without autograd saves nothing either way.
     remat_policy: Optional[str] = None
     attention_impl: Optional[str] = None  # None=auto, see ops.attention
-    # Microbatches per pipeline-stage schedule; pipelining belongs to the
-    # multi-device slice, so forward() rejects a config that sets it.
+    # Microbatches per pipeline-stage schedule; pipelining is not ported
+    # yet (ROADMAP A9), so forward() rejects a config that sets it.
     pp_microbatches: Optional[int] = None
 
     @property
@@ -139,6 +151,15 @@ def param_axes(config: TransformerConfig) -> Dict:
     return axes
 
 
+def param_shapes(config: TransformerConfig) -> Dict:
+    """Tree of the full parameter shapes, congruent with `param_axes`."""
+    c = config
+    size = {"layers": c.n_layers, "embed": c.d_model, "heads": c.n_heads,
+            "kv_heads": c.n_kv_heads, "head_dim": c.head_dim, "mlp": c.d_ff,
+            "vocab": c.vocab_size, None: c.d_model}  # the norms' unnamed dim
+    return tree_map(lambda axes: tuple(size[a] for a in axes), param_axes(c))
+
+
 def init_params(
     config: TransformerConfig,
     generator: torch.Generator,
@@ -194,11 +215,150 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
 
 
+# -- sharding -----------------------------------------------------------------
+
+# Parameter axes a mesh axis may keep split through the forward (tensor
+# parallelism): where the rules split a parameter dim and its activation
+# (`act_<name>`) over the same mesh axis. Every other split dim is
+# all-gathered where it is used (fsdp).
+_TENSOR_PARALLEL = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def _as_axes(entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _fitting_axis(axis, sizes, dim: int) -> Optional[str]:
+    """Resolve a rules entry to a single mesh axis name that divides dim."""
+    if axis is None:
+        return None
+    if isinstance(axis, tuple):
+        axis = axis[0] if axis else None
+    if axis not in sizes:
+        return None
+    return axis if dim % sizes[axis] == 0 and sizes[axis] > 1 else None
+
+
+def _ring_axis(rules: Rules, sizes, seq_len: int) -> Optional[str]:
+    """The mesh axis to run ring attention over, or None for local attention.
+
+    Non-None iff the strategy shards act_seq onto a real (>1) mesh axis that
+    divides the (global) sequence length — exactly the case where plain
+    attention would need the whole sequence."""
+    return _fitting_axis(rules.get("act_seq"), sizes, seq_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Sharded:
+    """What the forward under (rules, mesh) reads, for this rank.
+
+    `gathers` holds per parameter leaf the (dim, process group) of each
+    all-gather before its use (fsdp), whose backward sums the ranks'
+    gradient contributions: the axis splits the batch, so they differ.
+    Dims of the stacked layer leaves are those of one layer's slice. `heads`,
+    `mlp` and `vocab` are the tensor-parallel groups of the attention, the
+    MLP and the vocabulary (None where the dim is whole on every rank);
+    `kv_rank` is (rank, ranks) of the q heads' split where the kv heads are
+    not split with them (GQA kv heads that do not divide); `seq` the ring's
+    group and `seq_rank` this rank's place in it."""
+
+    gathers: Dict
+    heads: Optional[Any]
+    kv_rank: Optional[Tuple[int, int]]
+    mlp: Optional[Any]
+    vocab: Optional[Any]
+    vocab_rank: int
+    seq: Optional[Any]
+    seq_rank: int
+
+
+def _sharded(config: TransformerConfig, rules: Rules, mesh, local_seq_len: int) -> _Sharded:
+    sizes = mesh_axis_sizes(mesh)
+    for ax in _as_axes(rules.get("layers")):
+        if sizes.get(ax, 1) > 1:
+            raise NotImplementedError(
+                f"pipeline parallelism (the layer stack over the {ax!r} axis of size "
+                f"{sizes[ax]}, strategies 'pp' and 'pp_fsdp') is not ported yet: ROADMAP A9"
+            )
+    seq_axes = [a for a in _as_axes(rules.get("act_seq")) if sizes.get(a, 1) > 1]
+    if len(seq_axes) > 1:
+        raise NotImplementedError(f"ring attention runs over one mesh axis, got {seq_axes}")
+    ring = _ring_axis(rules, sizes, local_seq_len * math.prod(sizes[a] for a in seq_axes))
+    batch_axes = {a for a in _as_axes(rules.get("act_batch")) + tuple(seq_axes)
+                  if sizes.get(a, 1) > 1}
+    axes_tree = param_axes(config)
+    places = local_placements(param_shapes(config), axes_tree, rules, mesh)
+    kept: Dict[str, str] = {}
+
+    def plan(place, logical):
+        gathers = []
+        for dim, (split, name) in enumerate(zip(place, logical)):
+            act = _as_axes(rules.get(f"act_{name}")) if name else ()
+            local = [a for a in split if a in act]
+            if local and (name not in _TENSOR_PARALLEL or len(split) > 1):
+                raise NotImplementedError(
+                    f"the forward keeps only heads, kv_heads, mlp and vocab dims split, each "
+                    f"over one mesh axis; got {name!r} over {split}"
+                )
+            if local:
+                kept[name] = local[0]
+                continue
+            if not set(split) <= batch_axes:
+                raise NotImplementedError(
+                    f"{name!r} is gathered at its use over {split}, of which only the batch "
+                    f"axes {sorted(batch_axes)} can sum the ranks' gradients"
+                )
+            gathers += [(dim, mesh.get_group(a)) for a in reversed(split)]
+        return tuple(gathers)
+
+    gathers = tree_map(plan, places, axes_tree)
+    gathers["layers"] = tree_map(lambda g: tuple((d - 1, grp) for d, grp in g),
+                                 gathers["layers"])
+    heads, kv = kept.get("heads"), kept.get("kv_heads")
+    if kv is not None and kv != heads:
+        raise NotImplementedError(f"kv heads split over {kv!r} but q heads over {heads!r}")
+    group = lambda a: None if a is None else mesh.get_group(a)  # noqa: E731
+    return _Sharded(
+        gathers=gathers,
+        heads=group(heads),
+        kv_rank=shard_index((heads,), mesh) if heads is not None and kv is None else None,
+        mlp=group(kept.get("mlp")),
+        vocab=group(kept.get("vocab")),
+        vocab_rank=mesh.get_local_rank(kept["vocab"]) if "vocab" in kept else 0,
+        seq=group(ring),
+        seq_rank=mesh.get_local_rank(ring) if ring is not None else 0,
+    )
+
+
+def _weight(w: torch.Tensor, gathers) -> torch.Tensor:
+    """A parameter shard put together for its use: all-gathered over its
+    fsdp axes (the minor axis of a dim first), tensor-parallel dims left
+    split."""
+    for dim, group in gathers:
+        w = gather_shards(w, group, dim)
+    return w
+
+
+def _layer_weights(layer_params: Dict, sh: Optional[_Sharded], *names) -> List[torch.Tensor]:
+    """The weights `names` ("attn/wq", ...) of one layer, put together for
+    their use under `sh`."""
+    out = []
+    for name in names:
+        group, leaf = name.split("/")
+        w = layer_params[group][leaf]
+        out.append(w if sh is None else _weight(w, sh.gathers["layers"][group][leaf]))
+    return out
+
+
+# -- the decoder ----------------------------------------------------------------
+
+
 def _qkv(
     x: torch.Tensor,
     layer_params: Dict,
     positions: torch.Tensor,
     config: TransformerConfig,
+    sh: Optional[_Sharded] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The segment before attention: rms_norm, q/k/v projections, RoPE."""
     c = config
@@ -206,14 +366,31 @@ def _qkv(
     # `.to(dt)` casts each weight at its use, as the JAX package does; it is
     # a no-op for weights a server already holds in the compute dtype (the
     # rounding is the same either way).
-    attn_p = layer_params["attn"]
+    wq, wk, wv = _layer_weights(layer_params, sh, "attn/wq", "attn/wk", "attn/wv")
     h = rms_norm(x, layer_params["ln1"], c.norm_eps)
-    q = torch.einsum("bse,ehd->bshd", h, attn_p["wq"].to(dt))
-    kk = torch.einsum("bse,ehd->bshd", h, attn_p["wk"].to(dt))
-    vv = torch.einsum("bse,ehd->bshd", h, attn_p["wv"].to(dt))
+    if sh is not None:
+        h = copy_to(h, sh.heads)  # column-parallel q/k/v over the tensor axis
+        if sh.kv_rank is not None:
+            # GQA kv heads that do not divide over the tensor axis stay whole
+            # on every rank (the JAX package's `_fit_spec` rule); each rank
+            # takes those of its own q heads, and the weights' gradients,
+            # partial per rank, are summed over the axis.
+            wk, wv = (select_kv_heads(copy_to(w, sh.heads), c.n_heads, *sh.kv_rank)
+                      for w in (wk, wv))
+    q = torch.einsum("bse,ehd->bshd", h, wq.to(dt))
+    kk = torch.einsum("bse,ehd->bshd", h, wk.to(dt))
+    vv = torch.einsum("bse,ehd->bshd", h, wv.to(dt))
     q = apply_rope(q, positions, theta=c.rope_theta)
     kk = apply_rope(kk, positions, theta=c.rope_theta)
     return q, kk, vv
+
+
+def _attention(q, kk, vv, config: TransformerConfig, sh: Optional[_Sharded] = None):
+    if sh is not None and sh.seq is not None:
+        # The sequence is split over the ring's ranks: k/v rotate around it
+        # instead of being gathered (ops/ring_attention.py).
+        return ring_attention(q, kk, vv, group=sh.seq, causal=True)
+    return dot_product_attention(q, kk, vv, causal=True, impl=config.attention_impl)
 
 
 def _attend(
@@ -221,9 +398,10 @@ def _attend(
     layer_params: Dict,
     positions: torch.Tensor,
     config: TransformerConfig,
+    sh: Optional[_Sharded] = None,
 ) -> torch.Tensor:
-    q, kk, vv = _qkv(x, layer_params, positions, config)
-    return dot_product_attention(q, kk, vv, causal=True, impl=config.attention_impl)
+    q, kk, vv = _qkv(x, layer_params, positions, config, sh)
+    return _attention(q, kk, vv, config, sh)
 
 
 def _out_mlp(
@@ -231,18 +409,26 @@ def _out_mlp(
     attn: torch.Tensor,
     layer_params: Dict,
     config: TransformerConfig,
+    sh: Optional[_Sharded] = None,
 ) -> torch.Tensor:
     """The segment after attention: output projection, residual, rms_norm,
-    SwiGLU MLP, residual."""
+    SwiGLU MLP, residual. Under sharding the output projection and w_down
+    are row-parallel (their partial sums all-reduced over the tensor axis)
+    and w_gate/w_up column-parallel."""
     c = config
     dt = c.dtype
-    x = x + torch.einsum("bshd,hde->bse", attn, layer_params["attn"]["wo"].to(dt))
-    mlp_p = layer_params["mlp"]
+    wo, w_gate, w_up, w_down = _layer_weights(
+        layer_params, sh, "attn/wo", "mlp/w_gate", "mlp/w_up", "mlp/w_down")
+    out = torch.einsum("bshd,hde->bse", attn, wo.to(dt))
+    x = x + (out if sh is None else reduce_from(out, sh.heads))
     h = rms_norm(x, layer_params["ln2"], c.norm_eps)
-    gate = torch.einsum("bse,ef->bsf", h, mlp_p["w_gate"].to(dt))
-    up = torch.einsum("bse,ef->bsf", h, mlp_p["w_up"].to(dt))
+    if sh is not None:
+        h = copy_to(h, sh.mlp)
+    gate = torch.einsum("bse,ef->bsf", h, w_gate.to(dt))
+    up = torch.einsum("bse,ef->bsf", h, w_up.to(dt))
     ff = torch.nn.functional.silu(gate) * up
-    return x + torch.einsum("bsf,fe->bse", ff, mlp_p["w_down"].to(dt))
+    down = torch.einsum("bsf,fe->bse", ff, w_down.to(dt))
+    return x + (down if sh is None else reduce_from(down, sh.mlp))
 
 
 def _layer(
@@ -250,8 +436,9 @@ def _layer(
     layer_params: Dict,
     positions: torch.Tensor,
     config: TransformerConfig,
+    sh: Optional[_Sharded] = None,
 ) -> torch.Tensor:
-    return _out_mlp(x, _attend(x, layer_params, positions, config), layer_params, config)
+    return _out_mlp(x, _attend(x, layer_params, positions, config, sh), layer_params, config, sh)
 
 
 def _remat_policy(config: TransformerConfig) -> Optional[str]:
@@ -276,22 +463,25 @@ def _remat_layer(
     positions: torch.Tensor,
     config: TransformerConfig,
     policy: Optional[str],
+    sh: Optional[_Sharded] = None,
 ) -> torch.Tensor:
     """`_layer` under checkpoints whose boundaries keep what the JAX
     package's policies save (`save_only_these_names`): the layer input
     always; with "attn" also the attention output; with "qkv_attn" also the
     post-RoPE q, k, v (and the flash kernel's lse, which the kernel path
     saves with them, so its forward is not rerun). Everything else is
-    recomputed in the backward. Selective-checkpoint dispatch modes do not
+    recomputed in the backward, fsdp's weight all-gathers included: they
+    run inside the segments, so no gathered weight lives from one layer's
+    forward to its backward. Selective-checkpoint dispatch modes do not
     see a ctypes kernel as one op, hence the explicit segments."""
     if policy is None:
-        return _checkpoint(_layer, x, layer_params, positions, config)
+        return _checkpoint(_layer, x, layer_params, positions, config, sh)
     if policy == "attn":
-        attn = _checkpoint(_attend, x, layer_params, positions, config)
+        attn = _checkpoint(_attend, x, layer_params, positions, config, sh)
     else:
-        q, kk, vv = _checkpoint(_qkv, x, layer_params, positions, config)
-        attn = dot_product_attention(q, kk, vv, causal=True, impl=config.attention_impl)
-    return _checkpoint(_out_mlp, x, attn, layer_params, config)
+        q, kk, vv = _checkpoint(_qkv, x, layer_params, positions, config, sh)
+        attn = _attention(q, kk, vv, config, sh)
+    return _checkpoint(_out_mlp, x, attn, layer_params, config, sh)
 
 
 def _leaves(tree: Dict) -> List[torch.Tensor]:
@@ -308,36 +498,77 @@ def _index_layer(tree: Dict, i: int) -> Dict:
     }
 
 
+def _embed(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
+           sh: Optional[_Sharded]) -> torch.Tensor:
+    """Token embedding; under a vocab-parallel split each rank looks up the
+    tokens of its slice of the vocabulary, zero elsewhere, and the rows are
+    summed over the tensor axis."""
+    w = params["embed"]["tokens"]
+    if sh is None:
+        return w.to(config.dtype)[tokens]
+    w = _weight(w, sh.gathers["embed"]["tokens"]).to(config.dtype)
+    if sh.vocab is None:
+        return w[tokens]
+    rows = w.shape[0]
+    local = tokens - sh.vocab_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = w[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+    return reduce_from(x, sh.vocab)
+
+
+def _logits(params: Dict, x: torch.Tensor, config: TransformerConfig,
+            sh: Optional[_Sharded]) -> torch.Tensor:
+    """Final norm and lm_head (the transposed embedding when tied): f32
+    logits, all-gathered over a vocab-parallel split."""
+    c = config
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    head = params["embed"]["tokens"] if c.tie_embeddings else params["lm_head"]
+    if sh is not None:
+        gathers = sh.gathers["embed"]["tokens"] if c.tie_embeddings else sh.gathers["lm_head"]
+        head = _weight(head, gathers)
+        x = copy_to(x, sh.vocab)  # column-parallel over the vocabulary
+    head = head.T if c.tie_embeddings else head
+    logits = torch.einsum("bse,ev->bsv", x, head.to(c.dtype)).to(torch.float32)
+    return logits if sh is None else gather_from(logits, sh.vocab, -1)
+
+
 def forward(
     params: Dict,
     tokens: torch.Tensor,
     config: TransformerConfig,
     *,
-    rules: Optional[Dict] = None,
+    rules: Optional[Rules] = None,
     mesh=None,
 ) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, vocab] (f32), on the device that
     holds `params` and `tokens`. With `config.remat`, layers run under
-    checkpoints when autograd records (see `_remat_layer`)."""
-    if rules is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharding rules and meshes come with the multi-device slice of the port"
-        )
-    if config.pp_microbatches is not None:
-        raise NotImplementedError("pipelining comes with the multi-device slice of the port")
+    checkpoints when autograd records (see `_remat_layer`).
+
+    Under sharding `rules` and a `mesh` (given together: the port has no
+    ambient mesh scope), every rank of the mesh calls this with its shards
+    of the parameters (`shard_tree`) and its slice of the batch (batch over
+    act_batch's axes, sequence over act_seq's, as
+    `LMTrainContext.make_batch` cuts it), and gets the logits of its slice,
+    over the whole vocabulary."""
     c = config
+    if c.pp_microbatches is not None:
+        raise NotImplementedError("pipelining (pp_microbatches) is not ported yet: ROADMAP A9")
+    if (rules is None) != (mesh is None):
+        raise ValueError("sharding rules and a mesh go together: the port takes its mesh "
+                         "explicitly, with no ambient mesh scope")
+    sh = None if rules is None else _sharded(c, rules, mesh, tokens.shape[1])
     policy = _remat_policy(c) if c.remat else None
     remat = c.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(params)
     )
-    x = params["embed"]["tokens"].to(c.dtype)[tokens]
+    x = _embed(params, tokens, c, sh)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if sh is not None and sh.seq is not None:
+        positions = positions + sh.seq_rank * tokens.shape[1]  # global positions
     for i in range(c.n_layers):
         layer_params = _index_layer(params["layers"], i)
         if remat:
-            x = _remat_layer(x, layer_params, positions, c, policy)
+            x = _remat_layer(x, layer_params, positions, c, policy, sh)
         else:
-            x = _layer(x, layer_params, positions, c)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    head = params["embed"]["tokens"].T if c.tie_embeddings else params["lm_head"]
-    return torch.einsum("bse,ev->bsv", x, head.to(c.dtype)).to(torch.float32)
+            x = _layer(x, layer_params, positions, c, sh)
+    return _logits(params, x, c, sh)

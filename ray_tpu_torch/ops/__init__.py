@@ -1,4 +1,5 @@
-"""ray_tpu_torch.ops: attention, RoPE and the hand-written CUDA kernels."""
+"""ray_tpu_torch.ops: attention, ring attention, RoPE and the hand-written CUDA
+kernels."""
 
 from ray_tpu_torch.ops.attention import (
     blockwise_attention,
@@ -10,6 +11,7 @@ from ray_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
 )
+from ray_tpu_torch.ops.ring_attention import ring_attention, ring_attention_sharded
 
 __all__ = [
     "blockwise_attention",
@@ -18,4 +20,6 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_fwd",
     "reference_attention",
+    "ring_attention",
+    "ring_attention_sharded",
 ]

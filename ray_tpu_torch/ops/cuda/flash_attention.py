@@ -328,11 +328,13 @@ def flash_attention_bwd_plain(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels, by their formulas (no
     autograd): f32 scores over the whole sequence, P = exp(q_s k^T - lse)
     with masked entries 0, dS = P * (dO v^T - delta), dq = scale * dS k,
     dk = dS^T q_s, dv = P^T dO, dk and dv summed over each GQA group.
+    delta is rowsum(dO * o) f32 [B, H, Sq], computed from o unless given.
     Returns (dq, dk, dv) in q's, k's and v's types."""
     _check_shapes(q, k, v)
     b, sq, h, d = q.shape
@@ -344,7 +346,7 @@ def flash_attention_bwd_plain(
     vf = _repeat_kv(v, h).to(f32)
     dof = do.to(f32)
     # delta comes from the saved o, as the JAX package computes it.
-    delta = (dof * o.to(f32)).sum(-1).transpose(1, 2)[..., None]  # [B, H, Sq, 1]
+    delta = (_delta(do, o) if delta is None else delta)[..., None]  # [B, H, Sq, 1]
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse)
     if causal:
         p = p.masked_fill(~_visible(sq, sk, q.device), 0.0)
@@ -386,12 +388,13 @@ def _delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 class _BwdLaunch:
-    """One backward on the card: checks the inputs, computes delta,
-    allocates dq, dk and dv, and holds every tensor the kernels read while
-    they may run. `dq()` launches B2 and `dkv()` launches B3, each adding one
-    to its count."""
+    """One backward on the card: checks the inputs, computes delta unless
+    it is given, allocates dq, dk and dv, and holds every tensor the kernels
+    read while they may run. `dq()` launches B2 and `dkv()` launches B3,
+    each adding one to its count."""
 
-    def __init__(self, q, k, v, o, lse, do, causal: bool, scale: float):
+    def __init__(self, q, k, v, o, lse, do, causal: bool, scale: float,
+                 delta: Optional[torch.Tensor] = None):
         _check_kernel_inputs(q, k, v)
         b, sq, h, d = q.shape
         if o.shape != q.shape or do.shape != q.shape:
@@ -410,7 +413,13 @@ class _BwdLaunch:
         if not _kernel_readable(do):
             do = do.clone(memory_format=torch.contiguous_format)
         lse = lse.contiguous()
-        delta = _delta(do, o)
+        if delta is None:
+            delta = _delta(do, o)
+        elif (delta.shape != (b, h, sq) or delta.dtype != torch.float32
+              or delta.device != q.device):
+            raise ValueError(f"delta must be f32 [B, H, Sq] on {q.device}, got "
+                             f"{delta.dtype} {tuple(delta.shape)} on {delta.device}")
+        delta = delta.contiguous()
         self.dq_out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         self.dk_out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         self.dv_out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -458,18 +467,22 @@ def flash_attention_bwd(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward from the forward's saved (q, k, v, o, lse)
     and the output's gradient dO, [B, S, H, D] layout, as the JAX package's
     `_flash_bwd`. Returns (dq, dk, dv) in q's, k's and v's types; dk and dv
-    hold the sums over each GQA group."""
+    hold the sums over each GQA group. `delta`, rowsum(dO * o) f32
+    [B, H, Sq], is computed from o unless given: ring attention computes it
+    once for all its chunk pairs, from the merged output."""
     _check_shapes(q, k, v)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                         delta=delta)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
-    call = _BwdLaunch(q, k, v, o, lse, do, causal, scale)
+    call = _BwdLaunch(q, k, v, o, lse, do, causal, scale, delta)
     call.dq()
     call.dkv()
     return call.dq_out, call.dk_out, call.dv_out

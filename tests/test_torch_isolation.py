@@ -11,6 +11,7 @@ import torch
 import ray_tpu_torch
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, init_params
 from ray_tpu_torch.ops.cuda import flash_attention as flash
+from ray_tpu_torch.parallel import MeshSpec, build_mesh, setup_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -35,7 +36,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert len(files) > 10
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {"ray_tpu_torch/models/lm.py", "ray_tpu_torch/models/convert.py",
-            "ray_tpu_torch/ops/cuda/flash_attention.py"} <= scanned
+            "ray_tpu_torch/ops/cuda/flash_attention.py", "ray_tpu_torch/ops/ring_attention.py",
+            "ray_tpu_torch/parallel/__init__.py", "ray_tpu_torch/parallel/mesh.py",
+            "ray_tpu_torch/parallel/sharding.py", "ray_tpu_torch/parallel/bootstrap.py",
+            "ray_tpu_torch/parallel/collectives.py"} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)
     ]
@@ -46,6 +50,17 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(TransformerConfig.tiny(), torch.Generator())
+
+
+def test_build_mesh_without_device_type_raises_when_no_card(monkeypatch):
+    """A mesh is of CUDA cards unless the caller asks for CPU processes; the
+    check comes before any process group is made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        build_mesh()
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        setup_mesh(MeshSpec(data=1))
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_context_without_device_raises_when_no_card(monkeypatch):

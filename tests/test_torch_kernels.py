@@ -15,6 +15,7 @@ import torch
 
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, cross_entropy_loss, forward
 from ray_tpu_torch.ops.cuda import flash_attention as flash
+from ray_tpu_torch.ops.ring_attention import ring_schedule
 
 # Backward kernels against the plain backward in f32 from the same inputs,
 # as a share of the largest |gradient|: bf16 kernels round P and dS to bf16
@@ -271,3 +272,53 @@ def test_remat_policies_keep_less_memory_in_order():
         loss.backward()
         del loss, state
     assert kept["no_remat"] > kept["qkv_attn"] > kept["attn"] > kept["none"], kept
+
+
+# The ring's schedule against whole-sequence kernels, both bf16 from the
+# same inputs: each ring output row merges up to 4 partials, each rounded to
+# bf16 before an f32 merge, where whole-sequence B1 rounds once (2e-2, the
+# kernels' own bound against the plain version); gradients sum 4 bf16
+# partials per chunk in f32 and round the sum, against one rounding: up to
+# one bf16 ulp of the largest |gradient| apart (2^-7 of it at worst; 0.55%
+# measured on the H100), so 1e-2.
+RING_O_TOL = 2e-2
+RING_GRAD_REL_TOL = 1e-2
+
+
+@pytest.mark.gpu
+def test_ring_schedule_matches_whole_sequence_kernels():
+    """The ring's chunk schedule for a ring of 4 in one process (10 B1, 10
+    B2 and 10 B3 launches on 128-token chunks, GQA 4/2) against B1, B2 and
+    B3 over the whole 512 tokens."""
+    _need_card()
+    q, k, v, do = _qkv(2, 512, 4, 2, 128, torch.bfloat16, seed=7)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    whole = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+              flash.flash_attention_bwd.launches_dkv)
+    ring_o, ring_lse, *ring_grads = ring_schedule(q, k, v, do, n=4, causal=True)
+    torch.cuda.synchronize()
+    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+             flash.flash_attention_bwd.launches_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == (10, 10, 10)
+    assert ring_o.dtype == torch.bfloat16
+    assert (ring_o.float() - o.float()).abs().max().item() <= RING_O_TOL
+    assert (ring_lse - lse).abs().max().item() <= 1e-3
+    for name, ours, ref in zip(("dq", "dk", "dv"), ring_grads, whole):
+        assert bool(torch.isfinite(ours).all()), name
+        assert _rel_err(ours, ref.float()) <= RING_GRAD_REL_TOL, name
+
+
+@pytest.mark.gpu
+def test_bwd_with_supplied_delta_is_bitwise_the_same():
+    """flash_attention_bwd with delta given (as ring attention gives it)
+    against the same call computing it: bitwise-equal dq, dk and dv."""
+    _need_card()
+    q, k, v, do = _qkv(2, 1024, 16, 4, 128, torch.bfloat16, seed=8)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    own = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    given = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                      delta=flash._delta(do, o))
+    torch.cuda.synchronize()
+    for a, b in zip(own, given):
+        assert torch.equal(a, b)

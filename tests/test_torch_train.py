@@ -29,6 +29,7 @@ from ray_tpu_torch.models import (
     state_from_numpy,
 )
 from ray_tpu_torch.models import transformer
+from ray_tpu_torch.parallel import resolve_rules
 
 # Parameter gradients of the loss at f32: the two frameworks sum the same
 # products in other orders through two layers and the loss; the largest
@@ -231,9 +232,13 @@ def test_masked_batch_trains():
 
 @pytest.mark.parametrize("strategy", ["fsdp", "tp", "pp"])
 def test_other_strategies_and_meshes_are_not_ported_yet(strategy):
-    with pytest.raises(NotImplementedError, match="A5"):
-        LMTrainContext(TransformerConfig.tiny(), strategy=strategy, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    """Every strategy trains under a mesh (tests/test_torch_strategies.py)
+    but pipelined: a strategy that puts the layer stack on the pipeline
+    axis raises naming ROADMAP A9. A mesh is a torch DeviceMesh."""
+    rules = dict(resolve_rules(strategy), layers="pipeline")
+    with pytest.raises(NotImplementedError, match="A9"):
+        LMTrainContext(TransformerConfig.tiny(), strategy=rules, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
         LMTrainContext(TransformerConfig.tiny(), object(), device="cpu")
 
 
