@@ -502,16 +502,16 @@ def profile_device(fn, top: int = 12) -> dict:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    shares = {
-        name: sum(r[0] for r in rows if marker in r[2]) / total_us if total_us else None
-        for name, marker in KERNEL_MARKERS.items()
-    }
+    kernel_us = {name: sum(r[0] for r in rows if marker in r[2])
+                 for name, marker in KERNEL_MARKERS.items()}
+    shares = {name: us / total_us if total_us else None for name, us in kernel_us.items()}
     return {
         "window_ms": window_us / 1e3,
         "device_ms": total_us / 1e3,
         "device_busy_share": total_us / window_us if window_us else None,
         "flash_share_of_device": shares["flash_attn_fwd"],
         "kernel_shares_of_device": shares,
+        "kernel_ms": {name: us / 1e3 for name, us in kernel_us.items()},
         "top_kernels": [
             {"name": k[:90], "calls": n, "ms": us / 1e3} for us, n, k in rows[:top]
         ],
@@ -657,15 +657,32 @@ def clone_state(state) -> dict:
                           "nu": [t.clone() for t in opt["nu"]]}}
 
 
+def profile_summary(fn) -> dict:
+    """One call of `fn` under the profiler, split into the port's kernels'
+    device time, the rest of the device time, and the window's idle time
+    (the host's, profiler included)."""
+    p = profile_device(fn, top=6)
+    kernels_ms = sum(p["kernel_ms"].values())
+    return {"window_ms": p["window_ms"], "device_ms": p["device_ms"],
+            "kernels_ms": kernels_ms, "other_device_ms": p["device_ms"] - kernels_ms,
+            "idle_ms": p["window_ms"] - p["device_ms"], "kernel_ms": p["kernel_ms"],
+            "top_kernels": p["top_kernels"]}
+
+
+def train_batch(cfg) -> dict:
+    """The training cell's global batch, on the card: one seeded draw of
+    TRAIN_BATCH x (TRAIN_SEQ + 1) tokens, shifted into tokens and targets."""
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)), device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+
+
 def phase_training(card: str) -> tuple:
     cfg = bench_config()
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)  # a seeded torch.Generator on the card
     ref_state = clone_state(state)  # the optimizer updates in place
-    toks = np.random.default_rng(SEED + 1).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)
-    )
-    batch = ctx.make_batch({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    batch = train_batch(cfg)
     per_step = (cfg.n_layers,) * 3  # qkv_attn: B1, B2 and B3 once per layer
     # remat_policy=None recomputes each layer, attention's forward included.
     none_step = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
@@ -731,6 +748,7 @@ def phase_training(card: str) -> tuple:
         "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
         "launches_remat_none_step": dict(zip(("fwd", "dq", "dkv"), none_step)),
         "reference_first_step": {"loss": ref_loss, "grad_norm": ref_gn},
+        "profile": {k: profile[k] for k in ("window_ms", "device_ms", "device_busy_share")},
     }
     print(json.dumps({"training_profile": profile}), flush=True)
     return training, per_step
@@ -756,6 +774,12 @@ RING_GRAD_REL_TOL = 1e-2
 # same weights and batch: the same kernels and products, the loss in
 # another form (a sum over the token count, not a mean).
 SHARDED_LOSS_RTOL = 1e-3
+# Its first gradient norm and its second loss against the single-device
+# step's: the gradients are the same products (1/count is the mean's
+# 1/numel), the norm only sums the same squares in another order (f32, a
+# few ulps), and the update that the second loss reads differs from the
+# single device's where that clips a bf16 rounding: 1e-5 of either.
+SHARDED_STEP_RTOL = 1e-5
 STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "sp", "ep")
 
 
@@ -824,6 +848,14 @@ def ring_schedule_check(name, b, h, hkv, g) -> tuple:
         lambda: ring_schedule(q, k, v, do, n=RING_N, causal=True), calls=5, stream=side)
     times["whole_fwd_bwd_graph_ms"] = graph_ms(whole_fwd_bwd, calls=5, stream=side)
     print(f"ring schedule {name} times: {json.dumps(times)}", flush=True)
+    if name == RING_CASES[0][0]:  # where the schedule's time goes, at the training shape
+        times["profile"] = {
+            "fwd": profile_summary(lambda: ring_schedule(q, k, v, n=RING_N, causal=True)),
+            "fwd_bwd": profile_summary(lambda: ring_schedule(q, k, v, do, n=RING_N,
+                                                             causal=True)),
+            "whole_fwd_bwd": profile_summary(whole_fwd_bwd),
+        }
+        print(f"ring schedule {name} profile: {json.dumps(times['profile'])}", flush=True)
     return launches, {"shape": [b, TRAIN_SEQ, h, hkv, 128], "chunks": RING_N,
                       "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
                       "errors": errs, **times}
@@ -832,10 +864,11 @@ def ring_schedule_check(name, b, h, hkv, g) -> tuple:
 def phase_parallel(card: str, training: dict) -> tuple:
     """(a) the ring's chunk schedule at full width in one process; (b) the
     sharded training step under every ported strategy at world size 1, a
-    one-rank NCCL group on the card: its first loss against the
-    single-device step's on the same weights and batch, its launches, step
-    time and peak memory. The card's machine has one card, so no number
-    here is of more than one."""
+    one-rank NCCL group on the card: its first loss, first gradient norm
+    and second loss against the single-device step's on the same weights
+    and batch, its launches, step time, peak memory and a profile of one
+    step. The card's machine has one card, so no number here is of more
+    than one."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     ring, ring_launches = {}, None
     for name, b, h, hkv in RING_CASES:
@@ -845,35 +878,44 @@ def phase_parallel(card: str, training: dict) -> tuple:
 
     mesh = build_mesh(MeshSpec(data=1), device_type="cuda")
     cfg = bench_config()
-    toks = np.random.default_rng(SEED + 1).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    batch = train_batch(cfg)  # the single-device step's global batch
     per_step = (cfg.n_layers,) * 3
-    single_loss = training["losses"][0]
-    steps = {}
+    single = {"first_loss": training["losses"][0], "first_grad_norm": training["grad_norms"][0],
+              "second_loss": training["losses"][1]}
+    steps, disagree = {}, []
     try:
         for strategy in STRATEGIES:
             ctx = LMTrainContext(cfg, mesh, strategy)
             state = ctx.init_state(SEED)  # the single-device step's weights
-            batch = ctx.make_batch({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            step_s, losses = [], []
+            step_s, metrics = [], []
             for i in range(2):
                 t0 = time.perf_counter()
                 state, m = counted_step(ctx, state, batch, per_step, f"{strategy} step {i}")
-                losses.append(float(m["loss"]))  # waits for the step
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))  # waits for the step
                 step_s.append(time.perf_counter() - t0)
-            rel = abs(losses[0] - single_loss) / single_loss
-            steps[strategy] = {"step_s": step_s, "losses": losses,
+            ours = {"first_loss": metrics[0][0], "first_grad_norm": metrics[0][1],
+                    "second_loss": metrics[1][0]}
+            rel = {k: abs(ours[k] - single[k]) / abs(single[k]) for k in single}
+            steps[strategy] = {"step_s": step_s, "losses": [l for l, _ in metrics],
+                               "grad_norms": [n for _, n in metrics],
                                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                               "first_loss_rel_diff": rel}
-            print(f"sharded step {strategy} (world size 1): first loss {losses[0]:.5f} vs "
-                  f"single-device {single_loss:.5f} (rel {rel:.2e}, tol {SHARDED_LOSS_RTOL}); "
-                  f"step s {step_s}; peak {steps[strategy]['peak_mem_gb']:.2f} GB", flush=True)
-            check(rel <= SHARDED_LOSS_RTOL, f"{strategy}: first loss disagrees with one device")
-            check(all(np.isfinite(losses)), f"{strategy}: non-finite loss")
-            del ctx, state, batch
+                               "rel_diff": rel}
+            tols = {"first_loss": SHARDED_LOSS_RTOL, "first_grad_norm": SHARDED_STEP_RTOL,
+                    "second_loss": SHARDED_STEP_RTOL}
+            print(f"sharded step {strategy} (world size 1) vs single-device: "
+                  + "; ".join(f"{k} {ours[k]:.6f} vs {single[k]:.6f} (rel {rel[k]:.2e}, "
+                              f"tol {tols[k]})" for k in single)
+                  + f"; step s {step_s}; peak {steps[strategy]['peak_mem_gb']:.2f} GB", flush=True)
+            check(all(np.isfinite(metrics[0] + metrics[1])), f"{strategy}: non-finite metrics")
+            disagree += [f"{strategy}: {k}" for k in single if not rel[k] <= tols[k]]
+            steps[strategy]["profile"] = profile_summary(lambda: ctx.train_step(state, batch))
+            print(f"sharded step {strategy} profile: "
+                  f"{json.dumps(steps[strategy]['profile'])}", flush=True)
+            del ctx, state
             torch.cuda.empty_cache()
+        check(not disagree, f"the sharded step disagrees with one device: {disagree}")
     finally:
         dist.destroy_process_group()
     parallel = {
@@ -885,7 +927,8 @@ def phase_parallel(card: str, training: dict) -> tuple:
         "sharded_step": {"config": training["config"].replace("dp on one card", "on a "
                                                               "one-rank mesh"),
                          "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
-                         "single_device_first_loss": single_loss, "strategies": steps},
+                         "single_device": {**single, "profile": training["profile"]},
+                         "strategies": steps},
     }
     return parallel, ring_launches, per_step
 

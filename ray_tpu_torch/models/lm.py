@@ -24,16 +24,15 @@ from ray_tpu_torch.models.transformer import (
     _as_axes,
     _leaves,
     _resolve_device,
+    _sharded,
     forward,
     init_params,
     param_axes,
-    param_shapes,
 )
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_axis_sizes
 from ray_tpu_torch.parallel.sharding import (
     Rules,
     gather_tensor,
-    local_placements,
     resolve_rules,
     shard_tensor,
     shard_tree,
@@ -120,11 +119,6 @@ def _new_state(params: Dict, optimizer: Optimizer) -> Dict[str, Any]:
     return {"params": params, "opt_state": optimizer.init(leaves), "step": 0}
 
 
-class _PlacedBatch(dict):
-    """A batch `make_batch` has already cut to this rank and moved to the
-    device, which `train_step` takes as it is."""
-
-
 class LMTrainContext:
     """Init/train-step bundle for one (config, mesh, strategy), the port of
     the JAX package's `LMTrainContext`.
@@ -177,8 +171,8 @@ class LMTrainContext:
             for name in ("act_batch", "act_seq")
         )
         self.batch_axes = _in_order(a for axes in self._batch_place for a in axes)
-        self.placements = local_placements(param_shapes(config), param_axes(config),
-                                           self.rules, mesh)
+        # The forward's plan of this (config, rules, mesh), built here once.
+        self.placements = _sharded(config, self.rules, mesh).places
 
     # -- public API -------------------------------------------------------
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
@@ -195,7 +189,7 @@ class LMTrainContext:
         device. Under a mesh every rank passes the same global batch and
         keeps its slice: B over act_batch's mesh axes, S over act_seq's, as
         the JAX package's `make_batch` places the shards."""
-        out = _PlacedBatch()
+        out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
             if self.mesh is not None:
@@ -207,9 +201,9 @@ class LMTrainContext:
         """One step of loss, gradients, clipping and AdamW. Updates
         `state`'s tensors in place and returns (state, metrics) with metrics
         `loss`, `grad_norm` (before clipping) and `step`, global and the
-        same on every rank; the metrics stay on the device until read."""
-        if not isinstance(batch, _PlacedBatch):
-            batch = self.make_batch(batch)
+        same on every rank; the metrics stay on the device until read.
+        `batch` is the global batch, as `make_batch` takes it."""
+        batch = self.make_batch(batch)
         params = state["params"]
         leaves = _leaves(params)
         if self.mesh is None:
@@ -257,7 +251,7 @@ class LMTrainContext:
         mask = batch.get("mask")
         if mask is None:
             total = -ll.sum()
-            count = torch.tensor(float(ll.numel()), device=ll.device)
+            count = torch.full((), float(ll.numel()), device=ll.device)  # no host copy
         else:
             mask = mask.to(torch.float32)
             total = -(ll * mask).sum()

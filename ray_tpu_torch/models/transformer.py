@@ -260,8 +260,11 @@ class _Sharded:
     MLP and the vocabulary (None where the dim is whole on every rank);
     `kv_rank` is (rank, ranks) of the q heads' split where the kv heads are
     not split with them (GQA kv heads that do not divide); `seq` the ring's
-    group and `seq_rank` this rank's place in it."""
+    group and `seq_rank` this rank's place in it. `places` is the leaves'
+    `local_placements`, which the training step reads too."""
 
+    mesh: Any
+    places: Dict
     gathers: Dict
     heads: Optional[Any]
     kv_rank: Optional[Tuple[int, int]]
@@ -272,7 +275,21 @@ class _Sharded:
     seq_rank: int
 
 
-def _sharded(config: TransformerConfig, rules: Rules, mesh, local_seq_len: int) -> _Sharded:
+# The plans built so far, by (config, rules, id(mesh)). A plan holds its
+# mesh, so no other mesh can take that id while the entry lives.
+_PLANS: Dict[tuple, _Sharded] = {}
+
+
+def _sharded(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
+    """The plan of the forward under (rules, mesh), built at its first use
+    and kept for every later step."""
+    key = (config, tuple(sorted((k, _as_axes(v)) for k, v in rules.items())), id(mesh))
+    if key not in _PLANS:
+        _PLANS[key] = _build_plan(config, rules, mesh)
+    return _PLANS[key]
+
+
+def _build_plan(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
     sizes = mesh_axis_sizes(mesh)
     for ax in _as_axes(rules.get("layers")):
         if sizes.get(ax, 1) > 1:
@@ -283,7 +300,10 @@ def _sharded(config: TransformerConfig, rules: Rules, mesh, local_seq_len: int) 
     seq_axes = [a for a in _as_axes(rules.get("act_seq")) if sizes.get(a, 1) > 1]
     if len(seq_axes) > 1:
         raise NotImplementedError(f"ring attention runs over one mesh axis, got {seq_axes}")
-    ring = _ring_axis(rules, sizes, local_seq_len * math.prod(sizes[a] for a in seq_axes))
+    # Each rank gets its slice of a sequence split over seq_axes, so the
+    # global length is a multiple of their product, and `_ring_axis` answers
+    # for any length as it does for that product.
+    ring = _ring_axis(rules, sizes, math.prod(sizes[a] for a in seq_axes))
     batch_axes = {a for a in _as_axes(rules.get("act_batch")) + tuple(seq_axes)
                   if sizes.get(a, 1) > 1}
     axes_tree = param_axes(config)
@@ -319,6 +339,8 @@ def _sharded(config: TransformerConfig, rules: Rules, mesh, local_seq_len: int) 
         raise NotImplementedError(f"kv heads split over {kv!r} but q heads over {heads!r}")
     group = lambda a: None if a is None else mesh.get_group(a)  # noqa: E731
     return _Sharded(
+        mesh=mesh,
+        places=places,
         gathers=gathers,
         heads=group(heads),
         kv_rank=shard_index((heads,), mesh) if heads is not None and kv is None else None,
@@ -556,7 +578,7 @@ def forward(
     if (rules is None) != (mesh is None):
         raise ValueError("sharding rules and a mesh go together: the port takes its mesh "
                          "explicitly, with no ambient mesh scope")
-    sh = None if rules is None else _sharded(c, rules, mesh, tokens.shape[1])
+    sh = None if rules is None else _sharded(c, rules, mesh)
     policy = _remat_policy(c) if c.remat else None
     remat = c.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(params)

@@ -11,7 +11,6 @@ collectives itself (`models/transformer.py`).
 from ray_tpu_torch.parallel.bootstrap import (
     MeshBootstrap,
     pick_coordinator_address,
-    run_local_ranks,
     setup_mesh,
 )
 from ray_tpu_torch.parallel.collectives import (
@@ -58,7 +57,6 @@ __all__ = [
     "reduce_from",
     "remesh_spec",
     "resolve_rules",
-    "run_local_ranks",
     "setup_mesh",
     "shard_tree",
     "single_device_mesh",

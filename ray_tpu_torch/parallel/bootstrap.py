@@ -4,26 +4,24 @@ processes, one per device, into one process group.
 In the JAX package every host calls `jax.distributed.initialize` and one
 SPMD program then spans the slice. The port's ranks join a
 `torch.distributed` process group instead: NCCL with each rank bound to
-its card, or gloo for CPU processes. `run_local_ranks` starts N CPU ranks
-of one function on this host, the port's counterpart of the JAX package's
-virtual CPU mesh for tests.
+its card, or gloo for CPU processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-import multiprocessing
 import os
 import socket
-import time
-from typing import Callable, Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing
 
 from ray_tpu_torch.parallel.mesh import BACKENDS, MeshSpec, build_mesh, resolve_device_type
+
+# How long a collective waits for its peers before it raises.
+_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 @dataclasses.dataclass
@@ -35,7 +33,6 @@ class MeshBootstrap:
     coordinator_address: Optional[str] = None  # "host:port", required if >1 proc
     local_device_ids: Optional[list] = None  # this process's card (first entry)
     device_type: Optional[str] = None  # "cuda" (default) or "cpu"
-    timeout_s: float = 300.0
 
     def initialize(self):
         """Join the process group. Idempotent; no-op single-process (the
@@ -53,7 +50,7 @@ class MeshBootstrap:
             init_method=f"tcp://{self.coordinator_address}",
             world_size=self.num_processes,
             rank=self.process_id,
-            timeout=datetime.timedelta(seconds=self.timeout_s),
+            timeout=_TIMEOUT,
         )
 
     def shutdown(self):
@@ -89,56 +86,3 @@ def setup_mesh(
         bootstrap.initialize()
         device_type = device_type or bootstrap.device_type
     return build_mesh(spec, device_type=device_type)
-
-
-def _rank_main(rank: int, fn: Callable, world_size: int, init_file: str, timeout_s: float,
-               threads: int, args: Sequence) -> None:
-    torch.set_num_threads(threads)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    try:
-        fn(rank, *args)
-    finally:
-        dist.destroy_process_group()
-
-
-def run_local_ranks(
-    fn: Callable,
-    world_size: int,
-    args: Sequence = (),
-    *,
-    init_file: str,
-    deadline_s: float = 60.0,
-    timeout_s: float = 30.0,
-    threads: int = 1,
-) -> None:
-    """Run `fn(rank, *args)` in `world_size` fresh CPU processes joined in
-    one gloo group, which rendezvous through `init_file` (a path that does
-    not exist yet). `fn` and `args` must pickle (`fn` defined at a module's
-    top level). Raises the first rank's exception, or TimeoutError when the
-    ranks have not all ended `deadline_s` after the start; either way no
-    rank is left running. A collective waits at most `timeout_s` for its
-    peers.
-
-    The ranks fork from a forkserver, a single-threaded process that
-    imports torch and this package once for the calling process, so that
-    a run after the first starts in a fraction of a second where a spawn
-    takes seconds to import them."""
-    multiprocessing.get_context("forkserver").set_forkserver_preload(
-        ["torch", "ray_tpu_torch.models"])
-    ctx = torch.multiprocessing.start_processes(
-        _rank_main, args=(fn, world_size, init_file, timeout_s, threads, tuple(args)),
-        nprocs=world_size, join=False, start_method="forkserver",
-    )
-    deadline = time.monotonic() + deadline_s
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{world_size} ranks did not end within {deadline_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-        for p in ctx.processes:
-            p.join(10)

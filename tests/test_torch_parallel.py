@@ -19,7 +19,13 @@ import time
 import pytest
 import torch
 
-from ray_tpu_torch.models import TransformerConfig, forward, init_params, param_axes
+from ray_tpu_torch.models import (
+    LMTrainContext,
+    TransformerConfig,
+    forward,
+    init_params,
+    param_axes,
+)
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import param_shapes
 from ray_tpu_torch.parallel import (
@@ -38,11 +44,11 @@ from ray_tpu_torch.parallel import (
     reduce_from,
     remesh_spec,
     resolve_rules,
-    run_local_ranks,
     setup_mesh,
     shard_tree,
 )
 from ray_tpu_torch.parallel.sharding import _fit_spec, placement
+from torch_ranks import run_local_ranks
 
 WORLD = 4
 SPECS = [
@@ -202,6 +208,11 @@ def _ranks(rank, out_dir):
                 out[f"kept_remat_{policy}"] = _kept_layer_weights(local, tokens, cfg, rules, mesh)
             out["kept_no_remat"] = _kept_layer_weights(local, tokens, TransformerConfig.tiny(),
                                                        rules, mesh)
+            plan = transformer._sharded(CFG, rules, mesh)
+            out["plan_built_once"] = (
+                transformer._sharded(CFG, dict(rules), mesh) is plan
+                and LMTrainContext(CFG, mesh, name).placements is plan.places
+                and plan.places == places)
         del mesh
     # Collectives over the tensor axis of a 2 x 2 mesh.
     mesh = build_mesh(MeshSpec(data=2, tensor=2), device_type="cpu")
@@ -256,6 +267,12 @@ def test_fsdp_remat_keeps_no_full_layer_weight(results, policy):
     for out in results:
         assert out[f"kept_remat_{policy}"] == (0, n_weights)
         assert out["kept_no_remat"] == (2 * 6, n_weights)
+
+
+def test_sharding_plan_is_built_once_per_mesh(results):
+    """The forward's plan of a (config, rules, mesh) is built at its first
+    use and shared, placements included, with LMTrainContext."""
+    assert all(out["plan_built_once"] for out in results)
 
 
 def test_device_allreduce_over_an_axis(results):
@@ -328,7 +345,7 @@ def test_build_mesh_makes_a_one_rank_group_when_none_exists():
 
 def _bootstrap_rank(rank, address, out_dir):
     boot = MeshBootstrap(num_processes=2, process_id=rank, coordinator_address=address,
-                         device_type="cpu", timeout_s=30.0)
+                         device_type="cpu")
     mesh = setup_mesh(MeshSpec(data=2), boot)
     total = device_allreduce(torch.tensor([rank + 1.0]), mesh, "data").item()
     boot.shutdown()

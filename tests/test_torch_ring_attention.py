@@ -20,8 +20,9 @@ from ray_tpu_torch.models import LMTrainContext, TransformerConfig, state_from_n
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_attention, ring_attention_sharded, ring_schedule
-from ray_tpu_torch.parallel import MeshSpec, build_mesh, run_local_ranks
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 from ray_tpu_torch.parallel.sharding import all_gather_dim
+from torch_ranks import run_local_ranks
 
 WORLD = 4
 B, S, H, D = 2, 64, 4, 16

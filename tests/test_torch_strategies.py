@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, state_from_numpy
-from ray_tpu_torch.parallel import MeshSpec, build_mesh, gather_tree, run_local_ranks
+from ray_tpu_torch.parallel import MeshSpec, build_mesh, gather_tree
+from torch_ranks import run_local_ranks
 
 WORLD = 4
 STEPS = 3
