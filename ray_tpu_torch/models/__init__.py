@@ -1,9 +1,10 @@
 """ray_tpu_torch.models: the port's model families (the Llama-family
 decoder: its forward and its training step, on one device or sharded over a
-mesh)."""
+mesh, pipelined too; the MoE block, plain or expert-parallel)."""
 
 from ray_tpu_torch.models.convert import params_from_numpy, state_from_numpy
 from ray_tpu_torch.models.lm import LMTrainContext, cross_entropy_loss, default_optimizer
+from ray_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn, moe_param_axes
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
@@ -14,11 +15,15 @@ from ray_tpu_torch.models.transformer import (
 
 __all__ = [
     "LMTrainContext",
+    "MoEConfig",
     "TransformerConfig",
     "cross_entropy_loss",
     "default_optimizer",
     "forward",
+    "init_moe_params",
     "init_params",
+    "moe_ffn",
+    "moe_param_axes",
     "param_axes",
     "param_shapes",
     "params_from_numpy",

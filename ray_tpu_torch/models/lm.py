@@ -130,10 +130,14 @@ class LMTrainContext:
     state holds the rank's shards (`shard_tree` by the strategy's rules),
     the optimizer's moments mirror them, and the device is the mesh's.
 
-    `strategy` is a preset name or a rules table; every preset but the
-    pipelined "pp" and "pp_fsdp" (ROADMAP A9) is ported. The default is
-    "dp", where the JAX package's is "fsdp": without a mesh the two are the
-    same step.
+    `strategy` is a preset name or a rules table, every preset of the JAX
+    package. The default is "dp", where the JAX package's is "fsdp": without
+    a mesh the two are the same step, as are "pp" and "pp_fsdp", which
+    pipeline the layer stack only over a `pipeline` axis of size > 1.
+    Pipelined, every stage computes the same loss from the logits the
+    schedule broadcasts, and the gradients of the leaves outside the stack
+    (embedding, final norm, head) come out whole on every stage, so none is
+    summed over the pipeline axis (`parallel/pipeline.py`).
     """
 
     def __init__(
@@ -147,11 +151,6 @@ class LMTrainContext:
     ):
         self.config = config
         self.rules = resolve_rules(strategy)
-        if self.rules.get("layers") is not None:
-            raise NotImplementedError(
-                f"strategy {strategy!r} pipelines the layer stack; pipeline parallelism "
-                "('pp', 'pp_fsdp') is not ported yet: ROADMAP A9"
-            )
         self.optimizer = optimizer or default_optimizer()
         self.mesh = mesh
         if mesh is None:

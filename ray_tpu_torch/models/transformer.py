@@ -25,8 +25,13 @@
   the remat segment that uses them; Megatron column- and row-parallel
   products over the tensor axis for heads and mlp, with a vocab-parallel
   embedding and lm_head; a sequence-split residual stream with global RoPE
-  positions and ring attention under `sp` (`_Sharded`). Pipelining is not
-  ported yet (ROADMAP A9).
+  positions and ring attention under `sp` (`_Sharded`).
+- Under `pp` and `pp_fsdp` (the layer stack split over a `pipeline` axis of
+  size P > 1) each rank holds its stage's L/P layers and the layers run as a
+  GPipe schedule of microbatches (`_run_layers_pipelined`,
+  `parallel/pipeline.py`); under `pp_fsdp` each stage's weights are
+  all-gathered once per step. Where the pipeline axis has size 1, or there
+  is no mesh, the layers run as they do without it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ray_tpu_torch.ops.ring_attention import ring_attention, select_kv_heads
 from ray_tpu_torch.ops.rotary import apply_rope
 from ray_tpu_torch.parallel.collectives import copy_to, gather_from, gather_shards, reduce_from
 from ray_tpu_torch.parallel.mesh import mesh_axis_sizes
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
 from ray_tpu_torch.parallel.sharding import Rules, local_placements, shard_index, tree_map
 
 
@@ -67,8 +73,10 @@ class TransformerConfig:
     # without autograd saves nothing either way.
     remat_policy: Optional[str] = None
     attention_impl: Optional[str] = None  # None=auto, see ops.attention
-    # Microbatches per pipeline-stage schedule; pipelining is not ported
-    # yet (ROADMAP A9), so forward() rejects a config that sets it.
+    # Microbatches per pipeline-stage schedule when the rules split the
+    # layer stack over a `pipeline` axis of size > 1 (strategy "pp" or
+    # "pp_fsdp"); ignored otherwise. None derives the largest divisor of the
+    # local batch up to 4 * n_stages (~20% GPipe bubble).
     pp_microbatches: Optional[int] = None
 
     @property
@@ -261,7 +269,10 @@ class _Sharded:
     `kv_rank` is (rank, ranks) of the q heads' split where the kv heads are
     not split with them (GQA kv heads that do not divide); `seq` the ring's
     group and `seq_rank` this rank's place in it. `places` is the leaves'
-    `local_placements`, which the training step reads too."""
+    `local_placements`, which the training step reads too. `pipeline` is
+    the mesh axis the layer stack is split over (size > 1), and `pp_fsdp`
+    the axis its stages' weights are split over at rest, gathered once per
+    step by the schedule (None where there is none)."""
 
     mesh: Any
     places: Dict
@@ -273,6 +284,8 @@ class _Sharded:
     vocab_rank: int
     seq: Optional[Any]
     seq_rank: int
+    pipeline: Optional[str] = None
+    pp_fsdp: Optional[str] = None
 
 
 # The plans built so far, by (config, rules, id(mesh)). A plan holds its
@@ -289,17 +302,65 @@ def _sharded(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
     return _PLANS[key]
 
 
+def _pipeline_axes(config: TransformerConfig, rules: Rules,
+                   sizes) -> Tuple[Optional[str], Optional[str]]:
+    """(the axis the layer stack pipelines over, the fsdp-at-rest axis of
+    its stages' weights), both None where the rules' `layers` axis has size
+    1 or is absent: the JAX package's checks in `forward`, with its
+    errors. Explicit pp intent: misconfigurations are ERRORS, not silent
+    fallbacks."""
+    ax = rules.get("layers")
+    if ax is None:
+        return None, None
+    ax = ax[0] if isinstance(ax, tuple) else ax
+    size = sizes.get(ax, 1)
+    if size <= 1:
+        return None, None
+    if config.n_layers % size != 0:
+        raise ValueError(
+            f"strategy 'pp': n_layers={config.n_layers} not divisible by "
+            f"pipeline axis size {size}"
+        )
+    sharded_params = [k for k in ("embed", "heads", "kv_heads", "head_dim", "mlp", "vocab",
+                                  "expert") if rules.get(k) is not None]
+    # fsdp-at-rest composes with pp (strategy "pp_fsdp"); TP-style axes
+    # (which also shard activations) do NOT — gathering them would silently
+    # undo the tensor split.
+    act_axes = set()
+    for k, v in rules.items():
+        if k.startswith("act_") and k != "act_batch" and v is not None:
+            act_axes.update(_as_axes(v))
+    pp_fsdp_axes, bad = set(), []
+    for k in sharded_params:
+        v = rules[k]
+        if isinstance(v, tuple) or v == ax or v in act_axes:
+            bad.append(k)
+        else:
+            pp_fsdp_axes.add(v)
+    if bad:
+        raise ValueError(
+            "strategy 'pp' composes with data sharding and ONE "
+            "fsdp-at-rest param axis (strategy 'pp_fsdp'); param "
+            f"dims {bad} shard over activation/tensor axes the "
+            "pipeline schedule cannot gather away"
+        )
+    if len(pp_fsdp_axes) > 1:
+        raise ValueError(
+            "strategy 'pp' composes with at most ONE fsdp-at-rest "
+            f"param axis, got {sorted(pp_fsdp_axes)} across "
+            f"{sharded_params}"
+        )
+    return ax, (pp_fsdp_axes.pop() if pp_fsdp_axes else None)
+
+
 def _build_plan(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
     sizes = mesh_axis_sizes(mesh)
-    for ax in _as_axes(rules.get("layers")):
-        if sizes.get(ax, 1) > 1:
-            raise NotImplementedError(
-                f"pipeline parallelism (the layer stack over the {ax!r} axis of size "
-                f"{sizes[ax]}, strategies 'pp' and 'pp_fsdp') is not ported yet: ROADMAP A9"
-            )
+    pp_axis, pp_fsdp = _pipeline_axes(config, rules, sizes)
     seq_axes = [a for a in _as_axes(rules.get("act_seq")) if sizes.get(a, 1) > 1]
     if len(seq_axes) > 1:
         raise NotImplementedError(f"ring attention runs over one mesh axis, got {seq_axes}")
+    if pp_axis is not None and seq_axes:
+        raise NotImplementedError("the pipeline schedule does not split the sequence")
     # Each rank gets its slice of a sequence split over seq_axes, so the
     # global length is a multiple of their product, and `_ring_axis` answers
     # for any length as it does for that product.
@@ -313,6 +374,8 @@ def _build_plan(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
     def plan(place, logical):
         gathers = []
         for dim, (split, name) in enumerate(zip(place, logical)):
+            if name == "layers" and split == (pp_axis,):
+                continue  # each rank holds its stage's layers
             act = _as_axes(rules.get(f"act_{name}")) if name else ()
             local = [a for a in split if a in act]
             if local and (name not in _TENSOR_PARALLEL or len(split) > 1):
@@ -349,6 +412,8 @@ def _build_plan(config: TransformerConfig, rules: Rules, mesh) -> _Sharded:
         vocab_rank=mesh.get_local_rank(kept["vocab"]) if "vocab" in kept else 0,
         seq=group(ring),
         seq_rank=mesh.get_local_rank(ring) if ring is not None else 0,
+        pipeline=pp_axis,
+        pp_fsdp=pp_fsdp,
     )
 
 
@@ -573,13 +638,10 @@ def forward(
     `LMTrainContext.make_batch` cuts it), and gets the logits of its slice,
     over the whole vocabulary."""
     c = config
-    if c.pp_microbatches is not None:
-        raise NotImplementedError("pipelining (pp_microbatches) is not ported yet: ROADMAP A9")
     if (rules is None) != (mesh is None):
         raise ValueError("sharding rules and a mesh go together: the port takes its mesh "
                          "explicitly, with no ambient mesh scope")
     sh = None if rules is None else _sharded(c, rules, mesh)
-    policy = _remat_policy(c) if c.remat else None
     remat = c.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(params)
     )
@@ -587,10 +649,61 @@ def forward(
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     if sh is not None and sh.seq is not None:
         positions = positions + sh.seq_rank * tokens.shape[1]  # global positions
-    for i in range(c.n_layers):
-        layer_params = _index_layer(params["layers"], i)
-        if remat:
-            x = _remat_layer(x, layer_params, positions, c, policy, sh)
-        else:
-            x = _layer(x, layer_params, positions, c, sh)
+    if sh is not None and sh.pipeline is not None:
+        x = _run_layers_pipelined(params["layers"], x, positions, c, sh)
+    else:
+        x = _run_layers(params["layers"], x, positions, c, remat, sh)
     return _logits(params, x, c, sh)
+
+
+def _run_layers(layer_params: Dict, x: torch.Tensor, positions: torch.Tensor,
+                config: TransformerConfig, remat: bool,
+                sh: Optional[_Sharded] = None) -> torch.Tensor:
+    """The stacked layers [n, ...] of `layer_params`, in order, each under
+    the config's remat segments where `remat`."""
+    policy = _remat_policy(config) if config.remat else None
+    for i in range(_leaves(layer_params)[0].shape[0]):
+        lp = _index_layer(layer_params, i)
+        x = _remat_layer(x, lp, positions, config, policy, sh) if remat else _layer(
+            x, lp, positions, config, sh)
+    return x
+
+
+def _run_layers_pipelined(layer_params: Dict, x: torch.Tensor, positions: torch.Tensor,
+                          config: TransformerConfig, sh: _Sharded) -> torch.Tensor:
+    """This rank's stage of the layer stack as a GPipe pipeline
+    (`parallel/pipeline.py`): its L/P layers (the stack split over the
+    pipeline axis, stage-major) stacked as the one stage it runs, run on
+    each microbatch with the config's remat segments per layer, so the
+    attention kernels run once per layer per microbatch in each direction.
+    Under pp_fsdp the stage's weights, split over that axis at rest, are
+    all-gathered once per step by the schedule."""
+    fsdp_dims = None
+    if sh.pp_fsdp is not None:
+        fsdp_dims = tree_map(
+            lambda place: next((d + 1 for d, split in enumerate(place) if sh.pp_fsdp in split),
+                               None),
+            sh.places["layers"])
+    return pipeline_apply(pipeline_stage(config, positions), stack_stages(layer_params, 1), x,
+                          sh.mesh, n_microbatches=config.pp_microbatches, axis=sh.pipeline,
+                          fsdp_dims=fsdp_dims, fsdp_axis=sh.pp_fsdp or "fsdp")
+
+
+def stack_stages(layer_params: Dict, n_stages: int) -> Dict:
+    """The [L, ...] layer stack as [n_stages, L / n_stages, ...], stage-major:
+    the stacked parameters of `pipeline_apply`."""
+    return tree_map(lambda a: a.reshape(n_stages, a.shape[0] // n_stages, *a.shape[1:]),
+                    layer_params)
+
+
+def pipeline_stage(config: TransformerConfig, positions: torch.Tensor):
+    """One pipeline stage of the decoder, `fn(stage_params, h) -> h` for
+    `pipeline_apply` and `pipeline_train_step_1f1b`: the stage's layers
+    ([L/P, ...] leaves, unsharded) in order, under the config's remat
+    segments where autograd records."""
+
+    def stage(stage_params, h):
+        remat = config.remat and torch.is_grad_enabled()
+        return _run_layers(stage_params, h, positions, config, remat)
+
+    return stage

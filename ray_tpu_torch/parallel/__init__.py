@@ -1,6 +1,6 @@
-"""ray_tpu_torch.parallel: meshes, sharding rules and device collectives,
-port of `ray_tpu/parallel/` (the pipeline schedules and the host
-`CollectiveGroup` come with later slices: ROADMAP A9, A7/A14).
+"""ray_tpu_torch.parallel: meshes, sharding rules, device collectives and
+the pipeline schedules (GPipe, 1F1B), port of `ray_tpu/parallel/` (the host
+`CollectiveGroup` comes with a later slice: ROADMAP A7/A14).
 
 The JAX package's `tree_shardings` becomes `local_placements` (which mesh
 axes split each dim of each leaf); `with_logical_constraint`, a hint to
@@ -28,6 +28,7 @@ from ray_tpu_torch.parallel.mesh import (
     remesh_spec,
     single_device_mesh,
 )
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_train_step_1f1b
 from ray_tpu_torch.parallel.sharding import (
     PRESETS,
     Rules,
@@ -54,6 +55,8 @@ __all__ = [
     "logical_to_spec",
     "mesh_axis_sizes",
     "pick_coordinator_address",
+    "pipeline_apply",
+    "pipeline_train_step_1f1b",
     "reduce_from",
     "remesh_spec",
     "resolve_rules",

@@ -104,8 +104,7 @@ def sp_rules() -> Rules:
 
 
 def pp_rules() -> Rules:
-    """Pipeline parallel: the layer stack shards over the `pipeline` axis
-    (not ported yet: ROADMAP A9)."""
+    """Pipeline parallel: the layer stack shards over the `pipeline` axis."""
     r = dict(_BASE)
     r.update(layers="pipeline")
     return r
@@ -113,7 +112,7 @@ def pp_rules() -> Rules:
 
 def pp_fsdp_rules() -> Rules:
     """Pipeline x FSDP: layer stack over `pipeline`, params-at-rest sharded
-    over `fsdp` within each stage (not ported yet: ROADMAP A9)."""
+    over `fsdp` within each stage."""
     r = dict(_BASE)
     r.update(layers="pipeline", embed="fsdp")
     return r

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, cross_entropy_loss, forward
+from ray_tpu_torch.models import transformer
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_schedule
+from ray_tpu_torch.parallel import pipeline_apply, pipeline_train_step_1f1b
 
 # Backward kernels against the plain backward in f32 from the same inputs,
 # as a share of the largest |gradient|: bf16 kernels round P and dS to bf16
@@ -322,3 +324,54 @@ def test_bwd_with_supplied_delta_is_bitwise_the_same():
     torch.cuda.synchronize()
     for a, b in zip(own, given):
         assert torch.equal(a, b)
+
+
+# The pipelined schedules through the kernels against the same schedules
+# with the plain reference attention, both bf16 from one state: the loss, a
+# mean over 4 x 1024 tokens, within 1e-2 and the stage gradients' norm
+# within 3e-2 relative, the bounds chip_smoke.py holds a training step to
+# against the reference attention (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL).
+PIPE_LOSS_TOL = 1e-2
+PIPE_GRAD_RTOL = 3e-2
+
+
+def _pipeline_run(cfg, schedule, n_stages, m):
+    """(loss, stage gradients) of one schedule of `cfg`'s layers in
+    `n_stages` stages in one process, embedding and head outside it."""
+    _, state, tokens, targets = _small_state(cfg)
+    params = state["params"]
+    stacked = transformer.stack_stages(params["layers"], n_stages)
+    stage = transformer.pipeline_stage(cfg, torch.arange(tokens.shape[1], device="cuda"))
+    x = transformer._embed(params, tokens, cfg, None).detach()
+
+    def head(y, t):
+        return cross_entropy_loss(transformer._logits(params, y, cfg, None), t)
+
+    if schedule == "gpipe":
+        loss = head(pipeline_apply(stage, stacked, x, n_microbatches=m), targets)
+        leaves = transformer._leaves(stacked)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    loss, grads = pipeline_train_step_1f1b(stage, head, stacked, x, targets, n_microbatches=m)
+    return loss, transformer._leaves(grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule,launches", [("gpipe", (16, 16, 16)), ("1f1b", (24, 16, 16))])
+def test_pipeline_schedules_through_the_kernels(schedule, launches):
+    """4 layers (qkv_attn) in 2 stages, 4 microbatches of one row: each
+    kernel once per layer per microbatch in each direction; 1F1B runs
+    stage 0's forward again in its backward slot (B1 4 x 2 x (1 + 2))."""
+    _need_card()
+    cfg = dataclasses.replace(SMALL, n_layers=4, remat=True, remat_policy="qkv_attn")
+    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+              flash.flash_attention_bwd.launches_dkv)
+    loss, grads = _pipeline_run(cfg, schedule, 2, 4)
+    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
+             flash.flash_attention_bwd.launches_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == launches
+    ref_loss, ref_grads = _pipeline_run(dataclasses.replace(cfg, attention_impl="reference"),
+                                        schedule, 2, 4)
+    assert abs(float(loss) - float(ref_loss)) <= PIPE_LOSS_TOL
+    norm = lambda gs: torch.linalg.vector_norm(torch.stack(  # noqa: E731
+        [torch.linalg.vector_norm(g.float()) for g in gs])).item()
+    assert abs(norm(grads) - norm(ref_grads)) <= PIPE_GRAD_RTOL * norm(ref_grads)

@@ -9,8 +9,11 @@ carried over by `state_from_numpy` and cut into each rank's shards), takes
 `LMTrainContext` with strategy "dp" on one device, the ground truth
 `tests/test_models.py::test_train_step_strategies_agree` uses: loss and
 gradient norm each step, and the parameters after, gathered back from the
-shards. The JAX reference runs in this process; the ranks import no jax
-(this module imports it only inside functions).
+shards. The pipelined strategies (`pp`, `pp_fsdp`) are held to it too, and
+to the JAX package's own pipelined step on the same mesh; without a
+pipeline axis they are the plain step. The JAX reference runs in this
+process; the ranks import no jax (this module imports it only inside
+functions).
 """
 
 import functools
@@ -31,19 +34,34 @@ STEP_RTOL = 1e-5
 # Parameters after 3 AdamW steps: f32 rounding of the gradients, as in
 # tests/test_torch_train.py (PARAM_ATOL there).
 PARAM_ATOL = 1e-5
+# The pipelined steps' parameters: a GPipe schedule sums each gradient over
+# its microbatches (4 here), in another order than one product over the
+# batch, and AdamW's first steps move an element by about the learning rate
+# (3e-4) whatever its gradient's size, so an element whose gradient cancels
+# to near zero carries that reordering into its update. The JAX package's
+# own pipelined step ("pp" on data=2 x pipeline=2) differs from its
+# single-device step by 2.3e-5 on the masked batch (measured); the port's
+# by 1.0e-5. Twice the JAX package's own difference: 5e-5.
+PIPELINED_PARAM_ATOL = 5e-5
 
-# (strategy, mesh, masked batch)
+# (strategy, mesh, masked batch, config overrides)
 CASES = [
-    ("dp", dict(data=4), False),
-    ("fsdp", dict(data=2, fsdp=2), False),
-    ("tp", dict(data=1, tensor=4), False),  # kv heads 2 replicated, vocab 256/4
-    ("fsdp_tp", dict(data=1, fsdp=2, tensor=2), False),
-    ("sp", dict(data=1, seq=4), False),
-    ("sp", dict(data=1, seq=2, tensor=2), False),
-    ("ep", dict(data=1, fsdp=2, expert=2), False),
-    ("fsdp", dict(data=2, fsdp=2), True),
+    ("dp", dict(data=4), False, {}),
+    ("fsdp", dict(data=2, fsdp=2), False, {}),
+    ("tp", dict(data=1, tensor=4), False, {}),  # kv heads 2 replicated, vocab 256/4
+    ("fsdp_tp", dict(data=1, fsdp=2, tensor=2), False, {}),
+    ("sp", dict(data=1, seq=4), False, {}),
+    ("sp", dict(data=1, seq=2, tensor=2), False, {}),
+    ("ep", dict(data=1, fsdp=2, expert=2), False, {}),
+    ("fsdp", dict(data=2, fsdp=2), True, {}),
+    ("pp", dict(data=2, pipeline=2), False, {}),
+    ("pp_fsdp", dict(data=1, fsdp=2, pipeline=2), False, {}),
+    ("pp", dict(data=2, pipeline=2), True, {}),
+    ("pp", dict(data=2, pipeline=2), False, {"tie_embeddings": True}),
+    ("pp", dict(data=1, pipeline=4), False, {"n_layers": 4, "pp_microbatches": 2}),
 ]
-IDS = ["dp", "fsdp", "tp", "fsdp_tp", "sp", "sp_tp", "ep", "fsdp_masked"]
+IDS = ["dp", "fsdp", "tp", "fsdp_tp", "sp", "sp_tp", "ep", "fsdp_masked", "pp", "pp_fsdp",
+       "pp_masked", "pp_tied", "pp4_m2"]
 
 
 def _batch(masked: bool) -> dict:
@@ -56,7 +74,7 @@ def _batch(masked: bool) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_reference(masked: bool):
+def _jax_reference(masked: bool, cfg_items=()):
     """The JAX step on one device: (initial params, [(loss, grad_norm)],
     final params), numpy trees."""
     import jax
@@ -67,7 +85,7 @@ def _jax_reference(masked: bool):
     from ray_tpu.parallel import build_mesh as jax_build_mesh
 
     ctx = jax_lm.LMTrainContext(
-        jax_tf.TransformerConfig.tiny(),
+        jax_tf.TransformerConfig.tiny(**dict(cfg_items)),
         jax_build_mesh(JaxMeshSpec(data=1), devices=jax.devices()[:1]), "dp",
     )
     state = ctx.init_state(0)
@@ -79,9 +97,9 @@ def _jax_reference(masked: bool):
     return params0, metrics, jax.tree_util.tree_map(np.asarray, state["params"])
 
 
-def _train_rank(rank, strategy, spec, params0, batch, out_dir):
+def _train_rank(rank, strategy, spec, params0, batch, out_dir, cfg_kw=None):
     mesh = build_mesh(MeshSpec(**spec), device_type="cpu")
-    ctx = LMTrainContext(TransformerConfig.tiny(), mesh, strategy)
+    ctx = LMTrainContext(TransformerConfig.tiny(**(cfg_kw or {})), mesh, strategy)
     state = state_from_numpy(params0, ctx.config, device="cpu", mesh=mesh, strategy=strategy)
     metrics = []
     for _ in range(STEPS):
@@ -97,11 +115,7 @@ def _leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("strategy,spec,masked", CASES, ids=IDS)
-def test_sharded_step_matches_jax_single_device(tmp_path, strategy, spec, masked):
-    params0, jax_metrics, jax_params = _jax_reference(masked)
-    run_local_ranks(_train_rank, WORLD, (strategy, spec, params0, _batch(masked), str(tmp_path)),
-                    init_file=str(tmp_path / "rdzv"))
+def _check_ranks(tmp_path, jax_metrics, jax_params, param_atol=PARAM_ATOL):
     theirs = _leaves(jax_params)
     for rank in range(WORLD):
         out = torch.load(tmp_path / f"rank{rank}.pt", weights_only=True)
@@ -111,10 +125,78 @@ def test_sharded_step_matches_jax_single_device(tmp_path, strategy, spec, masked
         ours = _leaves(out["params"])
         assert len(ours) == len(theirs)
         for a, b in zip(ours, theirs):
-            np.testing.assert_allclose(a.numpy(), b, atol=PARAM_ATOL, rtol=0)
+            np.testing.assert_allclose(a.numpy(), b, atol=param_atol, rtol=0)
+
+
+@pytest.mark.parametrize("strategy,spec,masked,cfg_kw", CASES, ids=IDS)
+def test_sharded_step_matches_jax_single_device(tmp_path, strategy, spec, masked, cfg_kw):
+    params0, jax_metrics, jax_params = _jax_reference(masked, tuple(sorted(cfg_kw.items())))
+    run_local_ranks(_train_rank, WORLD,
+                    (strategy, spec, params0, _batch(masked), str(tmp_path), cfg_kw),
+                    init_file=str(tmp_path / "rdzv"))
+    _check_ranks(tmp_path, jax_metrics, jax_params,
+                 PIPELINED_PARAM_ATOL if strategy.startswith("pp") else PARAM_ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pipelined_reference(masked: bool, cfg_items=()):
+    """The JAX package's own pipelined step, its GPipe schedule: strategy
+    "pp" on a 4-device mesh (data=2, pipeline=2)."""
+    import jax
+
+    from ray_tpu.models import lm as jax_lm
+    from ray_tpu.models import transformer as jax_tf
+    from ray_tpu.parallel import MeshSpec as JaxMeshSpec
+    from ray_tpu.parallel import build_mesh as jax_build_mesh
+
+    ctx = jax_lm.LMTrainContext(
+        jax_tf.TransformerConfig.tiny(**dict(cfg_items)),
+        jax_build_mesh(JaxMeshSpec(data=2, pipeline=2), devices=jax.devices()[:4]), "pp",
+    )
+    state = ctx.init_state(0)
+    params0 = jax.tree_util.tree_map(np.asarray, state["params"])
+    metrics = []
+    for _ in range(STEPS):
+        state, m = ctx.train_step(state, _batch(masked))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return params0, metrics, jax.tree_util.tree_map(np.asarray, state["params"])
+
+
+# (masked batch, config overrides) of the pp step on (data=2, pipeline=2)
+# held to the JAX package's pipelined step on the same mesh.
+PIPELINED_CASES = [(False, {"pp_microbatches": 2}), (True, {})]
+
+
+@pytest.mark.parametrize("masked,cfg_kw", PIPELINED_CASES, ids=["pp_microbatches_2", "pp_masked"])
+def test_pp_step_matches_the_jax_pipelined_step(tmp_path, masked, cfg_kw):
+    params0, jax_metrics, jax_params = _jax_pipelined_reference(masked,
+                                                                tuple(sorted(cfg_kw.items())))
+    run_local_ranks(_train_rank, WORLD,
+                    ("pp", dict(data=2, pipeline=2), params0, _batch(masked), str(tmp_path),
+                     cfg_kw),
+                    init_file=str(tmp_path / "rdzv"))
+    _check_ranks(tmp_path, jax_metrics, jax_params, PIPELINED_PARAM_ATOL)
+
+
+def _plain_step_metrics(strategy, cfg_kw):
+    params0, _, _ = _jax_reference(False)
+    ctx = LMTrainContext(TransformerConfig.tiny(**cfg_kw), strategy=strategy, device="cpu")
+    state = state_from_numpy(params0, ctx.config, device="cpu")
+    metrics = []
+    for _ in range(STEPS):
+        state, m = ctx.train_step(state, _batch(False))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, state["params"]
 
 
 @pytest.mark.parametrize("strategy", ["pp", "pp_fsdp"])
-def test_pipelined_strategies_raise_naming_a9(strategy):
-    with pytest.raises(NotImplementedError, match="A9"):
-        LMTrainContext(TransformerConfig.tiny(), strategy=strategy, device="cpu")
+@pytest.mark.parametrize("cfg_kw", [{}, {"pp_microbatches": 2}], ids=["plain", "pp_microbatches"])
+def test_pipelined_strategies_without_a_pipeline_axis_are_the_plain_step(strategy, cfg_kw):
+    """With no mesh there is no pipeline axis: "pp" and "pp_fsdp" are the
+    plain step, pp_microbatches ignored, as in the JAX package (which
+    pipelines only over an axis of size > 1), and equal to "dp"."""
+    ours, ours_params = _plain_step_metrics(strategy, cfg_kw)
+    dp, dp_params = _plain_step_metrics("dp", {})
+    assert ours == dp
+    for a, b in zip(_leaves(ours_params), _leaves(dp_params)):
+        assert torch.equal(a, b)

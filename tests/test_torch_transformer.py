@@ -99,12 +99,44 @@ def test_params_from_numpy_casts_when_asked():
 
 
 def test_forward_rejects_multi_device_requests():
-    """Rules need an explicit mesh (the port has no ambient mesh scope);
-    pipelining is not ported yet (ROADMAP A9)."""
+    """Rules need an explicit mesh (the port has no ambient mesh scope).
+    pp_microbatches without a pipeline axis is ignored, as the JAX forward
+    ignores it."""
     cfg = TransformerConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="mesh"):
         forward(params, tokens, cfg, rules={"act_batch": "data"})
-    with pytest.raises(NotImplementedError, match="A9"):
-        forward(params, tokens, TransformerConfig.tiny(pp_microbatches=2))
+    assert torch.equal(forward(params, tokens, TransformerConfig.tiny(pp_microbatches=2)),
+                       forward(params, tokens, cfg))
+
+
+# Pipelined rules the JAX forward refuses on a mesh with a pipeline axis of
+# size 2: (rules overrides, config overrides).
+PP_MISCONFIGURED = [
+    ({}, {"n_layers": 3}),  # the stack does not split into 2 stages
+    ({"heads": "tensor", "act_heads": "tensor"}, {}),  # a tensor-parallel dim
+    ({"embed": "fsdp", "mlp": "data"}, {}),  # two fsdp-at-rest axes
+    ({"embed": "pipeline"}, {}),  # a parameter dim over the pipeline axis
+]
+
+
+@pytest.mark.parametrize("rules_kw,cfg_kw", PP_MISCONFIGURED,
+                         ids=["layers", "tensor", "two_fsdp", "over_pipeline"])
+def test_pipelined_misconfigurations_raise_the_jax_errors(rules_kw, cfg_kw):
+    from ray_tpu.parallel import MeshSpec as JaxMeshSpec
+    from ray_tpu.parallel import build_mesh as jax_build_mesh
+    from ray_tpu.parallel import resolve_rules as jax_resolve_rules
+    from ray_tpu_torch.models.transformer import _pipeline_axes
+
+    spec = dict(data=1, pipeline=2, tensor=2, fsdp=2)
+    jcfg = jax_tf.TransformerConfig.tiny(**cfg_kw)
+    rules = dict(jax_resolve_rules("pp"), **rules_kw)
+    mesh = jax_build_mesh(JaxMeshSpec(**spec), devices=jax.devices()[:8])
+    with pytest.raises(ValueError) as theirs:
+        jax_tf.forward(jax_tf.init_params(jcfg, jax.random.PRNGKey(0)),
+                       jnp.zeros((2, 8), jnp.int32), jcfg, rules=rules, mesh=mesh)
+    sizes = {"data": 1, "fsdp": 2, "expert": 1, "pipeline": 2, "seq": 1, "tensor": 2}
+    with pytest.raises(ValueError) as ours:
+        _pipeline_axes(TransformerConfig.tiny(**cfg_kw), rules, sizes)
+    assert str(ours.value) == str(theirs.value)
