@@ -16,8 +16,9 @@ printing the final line:
    (mma.sync) instruction counts, and fails if a bf16 kernel (all three
    run on wgmma) spills or holds an mma.sync;
 2. the forward kernels against their plain PyTorch version on the card
-   (FWD_CASES: head_dim 128 and 64, S = 1, 64, 200, 1000 and 1024, GQA,
-   causal and not, bf16 and f32), with times at the serving shape of the
+   (FWD_CASES: head_dim 128 and 64, S = 1, 64, 200, 512, 1000, 1024 and
+   2048, batch 1 to 16, 8, 16 and 32 heads, GQA, causal and not, bf16 and
+   f32, and every shape the later phases give the kernel), with times at the serving shape of the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls): CUDA events around
    eager calls, as a caller waits, and CUDA-graph replays, the card alone,
@@ -31,10 +32,13 @@ printing the final line:
 4. the backward kernels (dq, dk/dv) after the forward kernel against the
    plain forward and backward in f32 from the same inputs (BWD_CASES: the
    training shape causal and full and with a permuted dO, head_dim 128 and
-   64, S = 1, 64, 200, 1000 and 1024, GQA, causal and not, bf16 and f32),
+   64, S = 1, 64, 200, 1000, 1024 and 2048, batch 1 to 16, GQA, causal and
+   not, bf16 and f32, and every shape the later phases give the kernels),
    with times of each kernel at the training shape (CUDA events around
    eager calls and CUDA-graph replays), of the wrapper's delta pre-pass,
-   the plain backward and the library's backward;
+   the plain backward and the library's backward; and 10 repeats of B1, B2,
+   B3 and a GEMM at the training shape, which must equal the first call
+   bit for bit;
 5. training at bench.py's head configuration (d2048 L16 H16/16 ff5504
    V32000, bf16 params, remat qkv_attn, batch 16 x 1024, strategy dp) through
    `LMTrainContext` with random weights from a seeded generator: 2 warm-up
@@ -57,7 +61,7 @@ printing the final line:
    batch 16 x 1024 with M = 16 and 4 microbatches, against the unpipelined
    forward and backward: exact launches, loss, gradient norm and each
    stage's gradients, times and peak memory, 1F1B's peak below GPipe's at
-   M = 16; (c) `moe_ffn` at Mixtral-8x7B's expert width (bf16, x [4, 2048,
+   M = 16, and a profile of GPipe at M = 16; (c) `moe_ffn` at Mixtral-8x7B's expert width (bf16, x [4, 2048,
    4096]) forward and backward against the same block in f32, under `ep`
    on the one-rank mesh against the plain call, times, peak memory and the
    dense dispatch and combine against the expert products; (d)
@@ -269,6 +273,13 @@ FWD_CASES = [
     ("d64_s200", 2, 200, 16, 4, 64, torch.bfloat16, True),
     ("f32_ragged_300", 2, 300, 16, 4, 128, torch.float32, True),
     ("f32_d64_200_full", 2, 200, 16, 4, 64, torch.float32, False),
+    # The shapes the main paths of phase 7 give B1: a 1F1B or GPipe
+    # microbatch of bench.py's head configuration at M = 16 and 4,
+    # dryrun.entry()'s forward, and one layer of the 7B step.
+    ("pp_m16", 1, 1024, 16, 16, 128, torch.bfloat16, True),
+    ("pp_m4", 4, 1024, 16, 16, 128, torch.bfloat16, True),
+    ("entry", 4, 512, 8, 8, 128, torch.bfloat16, True),
+    ("llama_7b_layer", 1, 2048, 32, 32, 128, torch.bfloat16, True),
 ]
 
 
@@ -563,6 +574,10 @@ BWD_CASES = [
     ("d64_ragged_1000_full", 2, 1000, 16, 16, 64, torch.bfloat16, False, False),
     ("f32_ragged_300", 2, 300, 16, 4, 128, torch.float32, True, False),
     ("f32_d64_200_full", 2, 200, 16, 4, 64, torch.float32, False, False),
+    # The shapes the main paths of phase 7 give B2 and B3 (see FWD_CASES).
+    ("pp_m16", 1, TRAIN_SEQ, 16, 16, 128, torch.bfloat16, True, False),
+    ("pp_m4", 4, TRAIN_SEQ, 16, 16, 128, torch.bfloat16, True, False),
+    ("llama_7b_layer", 1, 2048, 32, 32, 128, torch.bfloat16, True, False),
 ]
 
 
@@ -582,8 +597,8 @@ def grad_errors(grads, plain) -> dict:
 # Repeats of B1, B2/B3 and a GEMM of the step's width on the same inputs,
 # compared bit for bit with the first call. All are deterministic by design,
 # and the checks of phases 5 and 6 at 1e-5 assume it; one machine gave
-# repeats that differed (PERF.md §7), and this line tells that apart from a
-# disagreement of the code under test. Printed, not checked.
+# repeats that differed (PERF.md §7). The check fails here, naming what did
+# not repeat, before a later check fails for it without saying why.
 REPEATS = 10
 
 
@@ -604,6 +619,9 @@ def reproducibility(q, k, v, do) -> dict:
         differ["gemm"] += not torch.equal(a @ w, c0)
     out = {"repeats": REPEATS, "differing": differ}
     print(f"reproducibility at the training shape: {json.dumps(out)}", flush=True)
+    names = {"fwd": "B1", "dq": "B2", "dk": "B3", "dv": "B3", "gemm": "the cuBLAS GEMM"}
+    check(not any(differ.values()), "repeats differ bit for bit: " + ", ".join(
+        f"{names[k]} ({k}) in {n} of {REPEATS}" for k, n in differ.items() if n))
     return out
 
 
@@ -1119,6 +1137,8 @@ def pipeline_schedules() -> tuple:
                    "loss": float(loss), "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
                    "stage_grad_rel": stage_rel, "s": secs, "s_over_unpipelined": secs / ref_s,
                    "host_issue_s": issued, "peak_mem_gb": peak}
+            if (schedule, m) == ("gpipe", PP_MICROBATCHES[0]):  # where its time goes
+                row["profile"] = profile_summary(run)
             print(f"pipeline {schedule} M={m}: {json.dumps(row)}", flush=True)
             out[f"{schedule}_m{m}"] = row
             if got != expect:

@@ -20,7 +20,6 @@ import datetime
 import math
 import os
 import tempfile
-import time
 from typing import Dict, Optional
 
 import torch
@@ -61,6 +60,9 @@ ENTRY_TOKENS = (4, 512)
 
 # One H100's device memory, the bound of the 7B accounting.
 H100_MEMORY_BYTES = 80e9
+# How long a rank of a started dry run waits in a collective (the
+# rendezvous included) before it gives up.
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def entry(*, device=None, **overrides):
@@ -200,22 +202,22 @@ def _rank_main(rank: int, n_devices: int, device_type: str, init_file: str) -> N
     else:
         torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group(BACKENDS[device_type], init_method=f"file://{init_file}", rank=rank,
-                            world_size=n_devices, timeout=datetime.timedelta(seconds=60))
+                            world_size=n_devices, timeout=COLLECTIVE_TIMEOUT)
     try:
         _dryrun_body(n_devices, device_type)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, *, device_type: Optional[str] = None,
-                     timeout_s: float = 300.0) -> None:
+def dryrun_multichip(n_devices: int, *, device_type: Optional[str] = None) -> None:
     """Run the dry run on `n_devices` ranks (see the module docstring).
 
     In a process group of n_devices ranks, every rank calls this and runs
     its part. Otherwise this starts the ranks: one per CUDA card, or n CPU
     processes with device_type="cpu", rendezvousing through a file in a
-    temporary directory; it raises the first rank's failure, or
-    TimeoutError after `timeout_s`, and leaves no rank running."""
+    temporary directory. It raises the first rank's failure, after which
+    the other ranks are terminated; a rank left waiting on a failed one
+    gives up after COLLECTIVE_TIMEOUT."""
     device_type = resolve_device_type(device_type)
     if dist.is_initialized():
         _dryrun_body(n_devices, device_type)
@@ -225,17 +227,5 @@ def dryrun_multichip(n_devices: int, *, device_type: Optional[str] = None,
                            f"{torch.cuda.device_count()} visible; pass device_type='cpu' to run "
                            "them as CPU processes")
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = torch.multiprocessing.start_processes(
-            _rank_main, args=(n_devices, device_type, os.path.join(tmp, "rdzv")),
-            nprocs=n_devices, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout_s
-        try:
-            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-                if time.monotonic() >= deadline:
-                    raise TimeoutError(f"{n_devices} ranks did not end within {timeout_s} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
-            for p in ctx.processes:
-                p.join(10)
+        torch.multiprocessing.spawn(_rank_main, nprocs=n_devices,
+                                    args=(n_devices, device_type, os.path.join(tmp, "rdzv")))

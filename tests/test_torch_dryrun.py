@@ -76,7 +76,7 @@ def test_7b_state_accounting_matches_a_count_by_hand():
 
 
 def test_dryrun_multichip_on_four_cpu_ranks():
-    dryrun.dryrun_multichip(4, device_type="cpu", timeout_s=120)
+    dryrun.dryrun_multichip(4, device_type="cpu")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -34,15 +34,23 @@ STEP_RTOL = 1e-5
 # Parameters after 3 AdamW steps: f32 rounding of the gradients, as in
 # tests/test_torch_train.py (PARAM_ATOL there).
 PARAM_ATOL = 1e-5
-# The pipelined steps' parameters: a GPipe schedule sums each gradient over
-# its microbatches (4 here), in another order than one product over the
-# batch, and AdamW's first steps move an element by about the learning rate
-# (3e-4) whatever its gradient's size, so an element whose gradient cancels
-# to near zero carries that reordering into its update. The JAX package's
-# own pipelined step ("pp" on data=2 x pipeline=2) differs from its
-# single-device step by 2.3e-5 on the masked batch (measured); the port's
-# by 1.0e-5. Twice the JAX package's own difference: 5e-5.
+# The pipelined steps' parameters. A GPipe schedule sums each gradient over
+# its microbatches, in another order than one product over the batch, and
+# AdamW moves an element by up to the learning rate (3e-4) whatever its
+# gradient's size, so an element whose gradient cancels to near zero
+# carries that reordering into its update. In each case all but one or two
+# elements of ~100k are within 1.5e-7 of the reference; the bound is for
+# that one. Largest difference from the JAX single-device step, measured:
+# pp 1.22e-6, pp_fsdp 1.22e-6, pp_masked 1.005e-5, pp_tied 3.25e-6,
+# pp4_m2 3.70e-5 (one element of w_up). The JAX package's own pipelined
+# step is 1.2e-7 to 2.31e-5 off its single-device step on these cases.
+# 5e-5 is 1.35 times the largest reading.
 PIPELINED_PARAM_ATOL = 5e-5
+# The port's pp step against the JAX package's pp step on the same mesh
+# and microbatches: the same schedule, its sums ordered by another
+# library. Measured: 1.24e-6 (pp_microbatches_2) and 1.63e-5 (pp_masked,
+# one element of lm_head). 2e-5 is 1.23 times the larger.
+JAX_PIPELINED_PARAM_ATOL = 2e-5
 
 # (strategy, mesh, masked batch, config overrides)
 CASES = [
@@ -175,7 +183,7 @@ def test_pp_step_matches_the_jax_pipelined_step(tmp_path, masked, cfg_kw):
                     ("pp", dict(data=2, pipeline=2), params0, _batch(masked), str(tmp_path),
                      cfg_kw),
                     init_file=str(tmp_path / "rdzv"))
-    _check_ranks(tmp_path, jax_metrics, jax_params, PIPELINED_PARAM_ATOL)
+    _check_ranks(tmp_path, jax_metrics, jax_params, JAX_PIPELINED_PARAM_ATOL)
 
 
 def _plain_step_metrics(strategy, cfg_kw):
