@@ -66,10 +66,27 @@ printing the final line:
    on the one-rank mesh against the plain call, times, peak memory and the
    dense dispatch and combine against the expert products; (d)
    `dryrun.entry()`'s forward with 8 B1 launches; and the memory of one
-   training layer of the 7B step at an fsdp=8 rank's batch.
+   training layer of the 7B step at an fsdp=8 rank's batch;
+8. the RL learners with their env runners on the card, in this process:
+   (a) PPO at tests/test_rllib.py::test_ppo_cartpole_learns's
+   configuration (2 EnvRunners x 8 CartPoles x 64 steps, 8 epochs x 8
+   minibatches) until the mean return reaches 120 (at most 100
+   iterations), with each update's CUDA-event time and host issue time and
+   the env steps/s; (b) one IMPALA and one APPO update through
+   LearnerGroup(num_learners=1) on the one-rank NCCL group; (c) DQN's
+   update_many over 4 batches of 32 and sync_target; (d) one SAC update on
+   Pendulum transitions; each of (a)-(d) held against the same update on
+   the CPU from the same state, batch and draws; (e) one multi-agent PPO
+   iteration with a shared and with independent policies; then (f) the
+   training state of bench.py's head configuration (bf16, full width and
+   depth) saved with Checkpoint.from_torch_state_sharded on the one-rank
+   mesh into a directory beside this script (removed after), restored with
+   get_torch_state, and a step from it against a step from the unbroken
+   state: bit for bit, 16/16/16 launches; bytes, times and GB/s.
 
 Prints JSON lines of the serving and training numbers, the profiles, the
-pipeline and experts and the kernels, and last {"ok": true, "device": {...}}.
+pipeline and experts, the RL learners, the checkpoint and the kernels, and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -81,6 +98,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -89,6 +107,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import dryrun, serve
+from ray_tpu_torch.air import Checkpoint
 from ray_tpu_torch.models import (
     LMTrainContext,
     MoEConfig,
@@ -110,6 +129,28 @@ from ray_tpu_torch.parallel import (
     pipeline_train_step_1f1b,
     resolve_rules,
 )
+from ray_tpu_torch.parallel.sharding import tree_leaves, tree_map
+from ray_tpu_torch.rllib import (
+    APPOConfig,
+    ContinuousReplayBuffer,
+    DQNConfig,
+    EnvRunner,
+    IMPALAConfig,
+    LearnerGroup,
+    MultiAgentCartPole,
+    MultiAgentEnvRunner,
+    MultiAgentPPOConfig,
+    PPOConfig,
+    ReplayBuffer,
+    SACConfig,
+    SampleBatch,
+    make_appo_learner,
+    make_impala_learner,
+    make_policy_learners,
+    make_sac_learner,
+)
+from ray_tpu_torch.rllib import dqn, ppo, sac
+from ray_tpu_torch.rllib.sample_batch import ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
 PEAK_BF16_FLOPS = 989e12
@@ -1304,6 +1345,342 @@ def phase_pipeline_experts(card: str) -> tuple:
     return out, launches
 
 
+# -- phase 8: the RL learners and the sharded checkpoint ---------------------------
+
+# PPO at tests/test_rllib.py::test_ppo_cartpole_learns's configuration: the
+# best mean return of the last 100 episodes must reach PPO_TARGET within
+# PPO_MAX_ITERS iterations.
+PPO_TARGET = 120.0
+PPO_MAX_ITERS = 100
+# Every learner update on the card against the same update on the CPU (the
+# same state, batch and draws; f32 on both, TF32 off): the same ops with
+# their sums in other orders, the bounds of the CPU parity tests against
+# the JAX package (tests/test_torch_rllib.py). There the port's 64-step
+# PPO update is 4.2e-7 off JAX's in the parameters after 64 Adam steps, so
+# 1e-5 absolute for parameters, targets and Adam moments; metrics within
+# 1e-5 relative, with a floor of 1e-6 absolute for a mean of terms of both
+# signs near zero (the policy loss of standardised advantages).
+RL_ATOL = 1e-5
+RL_RTOL = 1e-5
+RL_METRIC_ATOL = 1e-6
+
+
+def tensors_of(tree) -> list:
+    """A state's tensors, in leaf order (counts and generators left out)."""
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def cpu_copy(tree):
+    """A CPU copy of a learner state's tensors (requires_grad kept); other
+    leaves (counts, generators) shared."""
+    return tree_map(lambda x: x.detach().to("cpu", copy=True).requires_grad_(x.requires_grad)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+class draws:
+    """The draws of the port's one draw function `module.name` (PPO's
+    permutations, SAC's noise): recorded on the card, then replayed on the
+    CPU twin, which cannot reproduce a CUDA generator's stream."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig, self.seen = module, name, getattr(module, name), []
+
+    def record(self) -> None:
+        def rec(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.seen.append(out.cpu())
+            return out
+
+        setattr(self.module, self.name, rec)
+
+    def replay(self) -> None:
+        it = iter(self.seen)
+        setattr(self.module, self.name, lambda *args, **kw: next(it))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def held_against_cpu(what: str, card_out, cpu_out) -> dict:
+    """The card's (state, metrics) against the CPU twin's: every tensor of
+    the state within RL_ATOL, every metric within RL_RTOL (floor
+    RL_METRIC_ATOL)."""
+    (state, metrics), (cpu_state, cpu_metrics) = card_out, cpu_out
+    ours, theirs = tensors_of(state), tensors_of(cpu_state)
+    check(len(ours) == len(theirs), f"{what}: states differ in shape")
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
+                    zip(ours, theirs))
+    rel = {k: abs(float(metrics[k]) - float(cpu_metrics[k])) / max(abs(float(cpu_metrics[k])),
+                                                                     1e-30) for k in metrics}
+    bad = [k for k in metrics if abs(float(metrics[k]) - float(cpu_metrics[k]))
+           > RL_RTOL * abs(float(cpu_metrics[k])) + RL_METRIC_ATOL]
+    print(f"rllib {what} on the card vs the CPU: state max |diff| {param_err:.3g} (tol "
+          f"{RL_ATOL}); metrics rel {json.dumps(rel)} (tol {RL_RTOL}, floor {RL_METRIC_ATOL})",
+          flush=True)
+    check(param_err <= RL_ATOL and not bad, f"{what}: card and CPU disagree ({param_err}, {bad})")
+    return {"max_state_abs_err": param_err, "metric_rel_err": rel,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def timed_update(update, *args) -> tuple:
+    """One update: (its output, its CUDA-event ms, the host's ms to issue
+    it)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = update(*args)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), issue_ms
+
+
+PPO_COLUMNS = (OBS, ACTIONS, LOGPS, ADVANTAGES, RETURNS)
+
+
+def ppo_on_card() -> dict:
+    """(a) PPO's dataflow (PPO.train() without the actor hop): 2 EnvRunners
+    x 8 CartPoles x 64 steps in this process, policy inference and the
+    learner on the card, until the mean return reaches PPO_TARGET; the
+    first update held against the CPU."""
+    cfg = (PPOConfig().environment("CartPole-v1")
+           .env_runners(num_env_runners=2, num_envs_per_runner=8, rollout_length=64)
+           .training(lr=1e-3, num_epochs=8, minibatch_size=128, entropy_coeff=0.005)
+           .debugging(seed=7))
+    runners = [EnvRunner(cfg.env, cfg.num_envs_per_runner, cfg.rollout_length, gamma=cfg.gamma,
+                         lam=cfg.lam, seed=cfg.seed + 1000 * (i + 1), hidden=cfg.hidden)
+               for i in range(cfg.num_env_runners)]
+    init_state, update = ppo._make_learner(cfg, 4, 2)
+    _, cpu_update = ppo._make_learner(cfg, 4, 2, device="cpu")
+    state = init_state(cfg.seed)
+    returns, best, steps, sample_s, update_ms, issue_ms = [], 0.0, 0, 0.0, [], []
+    t_start = time.perf_counter()
+    for it in range(1, PPO_MAX_ITERS + 1):
+        t0 = time.perf_counter()
+        results = [r.sample(state["params"]) for r in runners]
+        sample_s += time.perf_counter() - t0
+        batch = SampleBatch.concat_samples([SampleBatch(r["batch"]) for r in results])
+        cols = {k: batch[k] for k in PPO_COLUMNS}
+        steps += batch.count
+        returns = (returns + [x for r in results for x in r["episode_returns"]])[-100:]
+        if it == 1:
+            cpu_state = cpu_copy(state)
+            with draws(ppo, "_permutation") as perms:
+                perms.record()
+                (state, metrics), ms, host = timed_update(update, state, cols)
+                perms.replay()
+                held = held_against_cpu("ppo (8 epochs x 8 minibatches)", (state, metrics),
+                                        cpu_update(cpu_state, cols))
+        else:
+            (state, metrics), ms, host = timed_update(update, state, cols)
+        update_ms.append(ms)
+        issue_ms.append(host)
+        check(np.isfinite(float(metrics["total_loss"])), f"ppo: non-finite loss at {it}")
+        best = max(best, float(np.mean(returns)) if returns else 0.0)
+        if best >= PPO_TARGET:
+            break
+    total_s = time.perf_counter() - t_start
+    print(f"rllib ppo: best mean return {best:.1f} after {it} iterations ({total_s:.1f} s); "
+          f"update {np.median(update_ms):.1f} ms (CUDA events, median), host issue "
+          f"{np.median(issue_ms):.1f} ms; env steps/s {steps / sample_s:.0f} sampling, "
+          f"{steps / total_s:.0f} overall", flush=True)
+    check(best >= PPO_TARGET, f"ppo: best mean return {best:.1f} < {PPO_TARGET} after {it} "
+                              "iterations")
+    return {"iterations": it, "best_mean_return": best, "seconds": total_s,
+            "env_steps": steps, "env_steps_per_s_sampling": steps / sample_s,
+            "env_steps_per_s": steps / total_s,
+            "update_ms_median": float(np.median(update_ms)), "update_ms": update_ms,
+            "host_issue_ms_median": float(np.median(issue_ms)),
+            "host_share": float(np.median(np.array(issue_ms) / np.array(update_ms))),
+            "minibatch_steps_per_update": 64, "first_update_vs_cpu": held}
+
+
+def vtrace_learners_on_card() -> dict:
+    """(b) one IMPALA and one APPO update through LearnerGroup(num_learners=1)
+    on the one-rank NCCL group, each on a sample_trajectory batch of 2
+    runners x 8 envs x 16 steps, against the unsharded update on the CPU."""
+    runners = [EnvRunner("CartPole-v1", 8, 16, seed=SEED + 1000 * (i + 1)) for i in range(2)]
+    # The first collective on the NCCL group creates its communicator (the
+    # steps of phase 6 at world size 1 issue none): timed apart.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    out = {"first_nccl_collective_ms": (time.perf_counter() - t0) * 1e3}
+    for name, config, make in (("impala", IMPALAConfig(), make_impala_learner),
+                               ("appo", APPOConfig(), make_appo_learner)):
+        init_state, update = make(config, 4, 2)
+        _, cpu_update = make(config, 4, 2, device="cpu")
+        state = init_state(SEED)
+        trajs = [r.sample_trajectory(state["params"]) for r in runners]
+        batch = {k: np.concatenate([t["batch"][k] for t in trajs], axis=1)
+                 for k in trajs[0]["batch"]}  # [T, N] = [16, 16]
+        cpu_state = cpu_copy(state)
+        group = LearnerGroup(update, 1)
+        check(group.group is not None, f"{name}: the learner group is not on the NCCL group")
+        card, ms, host = timed_update(group.update, state, batch)
+        out[name] = {**held_against_cpu(name, card, cpu_update(cpu_state, batch)),
+                     "update_ms": ms, "host_issue_ms": host}
+    return out
+
+
+def dqn_on_card() -> dict:
+    """(c) DQN: a _DQNRunner's epsilon-greedy transitions (Q-values on the
+    card) into a ReplayBuffer, update_many over U = 4 batches of 32, then
+    sync_target, against the CPU."""
+    runner = dqn._DQNRunner("CartPole-v1", 8, SEED)
+    init_state, update_many, sync = dqn._make_learner(DQNConfig(), 4, 2)
+    _, cpu_update_many, cpu_sync = dqn._make_learner(DQNConfig(), 4, 2, device="cpu")
+    state = init_state(SEED)
+    buffer = ReplayBuffer(10_000, 4)
+    got = runner.collect(state["params"], 32, 0.5)
+    buffer.add_batch(got["obs"], got["actions"], got["rewards"], got["next_obs"], got["dones"])
+    rng = np.random.default_rng(SEED)
+    stacked = [buffer.sample(32, rng) for _ in range(4)]
+    batches = tuple(np.stack([s[i] for s in stacked]) for i in range(5))
+    cpu_state = cpu_copy(state)
+    (state, loss), ms, host = timed_update(update_many, state, batches)
+    cpu_state, cpu_loss = cpu_update_many(cpu_state, batches)
+    held = held_against_cpu("dqn (update_many U=4, then sync_target)",
+                            (sync(state), {"loss": loss}),
+                            (cpu_sync(cpu_state), {"loss": cpu_loss}))
+    return {**held, "update_ms": ms, "host_issue_ms": host, "transitions": got["steps"]}
+
+
+def sac_on_card() -> dict:
+    """(d) SAC: a _SACRunner's Pendulum transitions (the actor on the card)
+    into a ContinuousReplayBuffer, one update of 256 with the same noise on
+    both sides, against the CPU."""
+    cfg = SACConfig()
+    runner = sac._SACRunner("Pendulum-v1", 8, SEED, cfg.hidden, cfg.act_limit)
+    init_state, update = make_sac_learner(cfg, 3, 1)
+    _, cpu_update = make_sac_learner(cfg, 3, 1, device="cpu")
+    state = init_state(SEED)
+    buffer = ContinuousReplayBuffer(10_000, 3, 1)
+    got = runner.collect(state["params"], 32)
+    b = got["batch"]
+    buffer.add_batch(b["obs"], b["actions"], b["rewards"], b["next_obs"], b["terminateds"])
+    batch = buffer.sample(cfg.batch_size, np.random.default_rng(SEED))
+    cpu_state = cpu_copy(state)
+    with draws(sac, "_normal") as noise:
+        noise.record()
+        card, ms, host = timed_update(update, state, batch)
+        noise.replay()
+        held = held_against_cpu("sac", card, cpu_update(cpu_state, batch))
+    return {**held, "update_ms": ms, "host_issue_ms": host}
+
+
+def multi_agent_on_card() -> dict:
+    """(e) one multi-agent PPO iteration (2 MultiAgentEnvRunners x 8 envs x
+    32 steps of a 2-agent CartPole, then each policy's PPO update on the
+    card), with a shared and with independent policies."""
+    out = {}
+    for name, mapping in (("shared", {"agent_0": "shared", "agent_1": "shared"}),
+                          ("independent", {"agent_0": "p0", "agent_1": "p1"})):
+        cfg = (MultiAgentPPOConfig().environment(MultiAgentCartPole).multi_agent(mapping)
+               .debugging(seed=SEED))
+        pids, updates, states = make_policy_learners(cfg)
+        runners = [MultiAgentEnvRunner(cfg.env_creator, cfg.num_envs_per_runner,
+                                       cfg.rollout_length, mapping,
+                                       seed=cfg.seed + 1000 * (i + 1)) for i in range(2)]
+        t0 = time.perf_counter()
+        results = [r.sample({pid: states[pid]["params"] for pid in pids}) for r in runners]
+        losses, rows = {}, {}
+        for pid in pids:
+            batch = SampleBatch.concat_samples([SampleBatch(r["batches"][pid]) for r in results])
+            rows[pid] = batch.count
+            states[pid], m = updates[pid](states[pid], {k: batch[k] for k in PPO_COLUMNS})
+            losses[pid] = float(m["total_loss"])
+        seconds = time.perf_counter() - t0
+        check(all(np.isfinite(list(losses.values()))), f"multi-agent {name}: {losses}")
+        check(sum(rows.values()) == sum(r["steps"] for r in results),
+              f"multi-agent {name}: {rows} rows for {[r['steps'] for r in results]} steps")
+        print(f"rllib multi-agent ppo ({name}): policies {pids}, rows {rows}, total loss "
+              f"{losses}, one iteration {seconds:.2f} s", flush=True)
+        out[name] = {"policies": pids, "rows": rows, "total_loss": losses, "seconds": seconds}
+    return out
+
+
+def checkpoint_on_card(mesh) -> tuple:
+    """(f) bench.py's head configuration's state at full width and depth
+    (bf16 params and Adam moments, after one step), saved with
+    from_torch_state_sharded on the one-rank NCCL mesh into a directory
+    beside this script (removed after), restored with get_torch_state, and
+    one step from the restored state against one from the unbroken state:
+    bit for bit, 16/16/16 launches."""
+    cfg = bench_config()
+    ctx = LMTrainContext(cfg, mesh, "fsdp")
+    per_step = (cfg.n_layers,) * 3
+    batch = train_batch(cfg)
+    state, _ = ctx.train_step(ctx.init_state(SEED), batch)  # moments and count nonzero
+    tensors = tensors_of(state)
+    state_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    where = os.path.dirname(os.path.abspath(__file__))
+    free = shutil.disk_usage(where).free
+    print(f"checkpoint: state {state_bytes / 1e9:.3f} GB, free space {free / 1e9:.1f} GB",
+          flush=True)
+    check(free > 2 * state_bytes, f"checkpoint: {free / 1e9:.1f} GB free cannot hold the "
+                                  f"{state_bytes / 1e9:.2f} GB state twice over")
+    path = tempfile.mkdtemp(prefix=".ckpt-", dir=where)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt = Checkpoint.from_torch_state_sharded(state, path, mesh, ctx.state_placements(),
+                                                   step=state["step"])
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                      for f in fs)
+        t0 = time.perf_counter()
+        restored = ckpt.get_torch_state(placements=ctx.state_placements(), mesh=mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(tensors, tensors_of(restored)))
+    check(same, "checkpoint: the restored state is not the saved one bit for bit")
+    resumed, m_resumed = counted_step(ctx, restored, batch, per_step, "resumed step")
+    unbroken, m_unbroken = counted_step(ctx, state, batch, per_step, "unbroken step")
+    bitwise = torch.equal(m_resumed["loss"], m_unbroken["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(tensors_of(resumed), tensors_of(unbroken)))
+    out = {"config": "bench.py head: d2048 L16 H16/16 ff5504 V32000, bf16 params and Adam "
+                     "moments, after one step, fsdp on a one-rank NCCL mesh",
+           "state_bytes": state_bytes, "bytes_written": written, "free_bytes_before": free,
+           "save_s": save_s, "save_gb_per_s": written / save_s / 1e9,
+           "restore_s": restore_s, "restore_gb_per_s": written / restore_s / 1e9,
+           "restored_bitwise": same, "resumed_step_bitwise": bitwise,
+           "resumed_loss": float(m_resumed["loss"]), "unbroken_loss": float(m_unbroken["loss"]),
+           "launches_resumed_step": dict(zip(("fwd", "dq", "dkv"), per_step))}
+    print(f"checkpoint: wrote {written / 1e9:.3f} GB in {save_s:.2f} s "
+          f"({out['save_gb_per_s']:.2f} GB/s), restored in {restore_s:.2f} s "
+          f"({out['restore_gb_per_s']:.2f} GB/s); resumed step loss {out['resumed_loss']:.6f} "
+          f"vs unbroken {out['unbroken_loss']:.6f}, bitwise {bitwise}", flush=True)
+    check(bitwise, "checkpoint: the resumed step is not the unbroken step bit for bit")
+    return out, per_step
+
+
+def phase_rl_checkpoint(card: str) -> tuple:
+    """Phase 8: the RL learners with their env runners on the card, then the
+    sharded checkpoint of the training state."""
+    t0 = time.perf_counter()
+    mesh = build_mesh(MeshSpec(data=1), device_type="cuda")  # the one-rank group of phase 6
+    rllib = {"card": card, "ppo": ppo_on_card(), **vtrace_learners_on_card(),
+             "dqn": dqn_on_card(), "sac": sac_on_card(), "multi_agent": multi_agent_on_card(),
+             "bounds": {"state_atol": RL_ATOL, "metric_rtol": RL_RTOL,
+                        "metric_atol": RL_METRIC_ATOL}}
+    rllib["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    checkpoint, launches = checkpoint_on_card(mesh)
+    checkpoint["card"] = card
+    checkpoint["seconds"] = time.perf_counter() - t1
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rllib, checkpoint, launches
+
+
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
@@ -1459,10 +1836,14 @@ def main() -> int:
         print(json.dumps({"parallel": parallel}), flush=True)
         torch.cuda.empty_cache()
         pipeline, pp_launches = phase_pipeline_experts(card)
+        print(json.dumps({"pipeline": pipeline}), flush=True)
+        torch.cuda.empty_cache()
+        rllib, checkpoint, ckpt_launches = phase_rl_checkpoint(card)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    print(json.dumps({"pipeline": pipeline}), flush=True)
+    print(json.dumps({"rllib": rllib}), flush=True)
+    print(json.dumps({"checkpoint": checkpoint}), flush=True)
 
     source = "ray_tpu_torch/csrc/"
     kernels = [
@@ -1480,7 +1861,8 @@ def main() -> int:
                               "sharded_train_step": sharded_launches[0],
                               "pp_train_step": sharded_launches[0],
                               "pipeline_gpipe": pp_launches["gpipe"][0],
-                              "pipeline_1f1b": pp_launches["1f1b"][0]},
+                              "pipeline_1f1b": pp_launches["1f1b"][0],
+                              "checkpoint_resumed_step": ckpt_launches[0]},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
@@ -1496,7 +1878,8 @@ def main() -> int:
                               "sharded_train_step": sharded_launches[1],
                               "pp_train_step": sharded_launches[1],
                               "pipeline_gpipe": pp_launches["gpipe"][1],
-                              "pipeline_1f1b": pp_launches["1f1b"][1]},
+                              "pipeline_1f1b": pp_launches["1f1b"][1],
+                              "checkpoint_resumed_step": ckpt_launches[1]},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
@@ -1511,7 +1894,8 @@ def main() -> int:
                               "sharded_train_step": sharded_launches[2],
                               "pp_train_step": sharded_launches[2],
                               "pipeline_gpipe": pp_launches["gpipe"][2],
-                              "pipeline_1f1b": pp_launches["1f1b"][2]},
+                              "pipeline_1f1b": pp_launches["1f1b"][2],
+                              "checkpoint_resumed_step": ckpt_launches[2]},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
     for entry in kernels:

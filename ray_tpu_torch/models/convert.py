@@ -1,5 +1,5 @@
 """Carry weights over from the JAX package's parameter tree, and start a
-training state from them."""
+training state from them; carry an RL learner's state over whole."""
 
 from __future__ import annotations
 
@@ -64,3 +64,52 @@ def state_from_numpy(
     if mesh is not None:
         params = shard_tree(params, param_axes(config), resolve_rules(strategy), mesh)
     return _new_state(params, optimizer or default_optimizer())
+
+
+# The leaves of an RL learner's state that its update differentiates.
+_TRAINABLE = ("params", "log_alpha")
+
+
+def learner_state_from_numpy(state: Dict[str, Any], *, device, seed: int = 0) -> Dict[str, Any]:
+    """A JAX RL learner's state (`init_state` or an update's output of the
+    JAX package's `rllib` learners, every leaf a numpy array, as
+    `jax.tree_util.tree_map(np.asarray, state)` gives it) -> the port's
+    learner state on `device`, the same tree:
+
+    - "params" and "log_alpha" become tensors that require grad, every
+      other array ("target", ...) a plain tensor;
+    - an optax Adam state (optax.adam's chain, a tuple holding a
+      ScaleByAdamState) becomes {"count": int, "mu", "nu"}, the moments'
+      trees as the port's `adam` keeps them;
+    - the PRNG "key" becomes "rng", a torch.Generator on `device` seeded
+      with `seed`: jax.random cannot be reproduced.
+    """
+    out = {}
+    for k, v in state.items():
+        adam_state = _adam_state(v)
+        if k == "key":
+            out["rng"] = torch.Generator(device=device).manual_seed(seed)
+        elif adam_state is not None:
+            out[k] = {"count": int(adam_state.count),
+                      "mu": _tensors(adam_state.mu, device, False),
+                      "nu": _tensors(adam_state.nu, device, False)}
+        else:
+            out[k] = _tensors(v, device, k in _TRAINABLE)
+    return out
+
+
+def _adam_state(v):
+    """optax's ScaleByAdamState: `v` itself, or the member of optax.adam's
+    chain tuple that holds it; else None."""
+    for x in (v, *(v if isinstance(v, tuple) else ())):
+        if all(hasattr(x, f) for f in ("count", "mu", "nu")):
+            return x
+    return None
+
+
+def _tensors(tree, device, requires_grad: bool):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device, requires_grad) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device, requires_grad) for v in tree]
+    return _tensor(np.asarray(tree), device).requires_grad_(requires_grad)

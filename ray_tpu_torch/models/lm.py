@@ -36,6 +36,7 @@ from ray_tpu_torch.parallel.sharding import (
     resolve_rules,
     shard_tensor,
     shard_tree,
+    tree_leaves,
     tree_map,
 )
 
@@ -92,22 +93,55 @@ def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) ->
             grad_norm = _global_norm(grads)
         # clip_by_global_norm: g * (max_norm / max(|g|, max_norm)), in place.
         torch._foreach_mul_(grads, max_norm / torch.clamp(grad_norm, min=max_norm))
-        # scale_by_adam, with bias correction at count + 1.
         count = opt_state["count"] + 1
         mu, nu = opt_state["mu"], opt_state["nu"]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, grads, alpha=1 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-        upd = torch._foreach_div(mu, 1 - b1 ** count)
-        denom = torch._foreach_div(nu, 1 - b2 ** count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        torch._foreach_div_(upd, denom)
+        upd = _scale_by_adam(grads, mu, nu, count, b1, b2, eps)
         # add_decayed_weights, then scale_by_learning_rate and apply_updates.
         torch._foreach_add_(upd, params, alpha=weight_decay)
         torch._foreach_add_(params, upd, alpha=-learning_rate)
         return {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def _scale_by_adam(grads: List[torch.Tensor], mu: List[torch.Tensor], nu: List[torch.Tensor],
+                   count: int, b1: float, b2: float, eps: float) -> List[torch.Tensor]:
+    """optax.scale_by_adam on lists of tensors: the moments updated in place,
+    and the updates mu_hat / (sqrt(nu_hat) + eps) returned, with the bias
+    correction at `count`, the count after this step."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+    upd = torch._foreach_div(mu, 1 - b1 ** count)
+    denom = torch._foreach_div(nu, 1 - b2 ** count)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_div_(upd, denom)
+    return upd
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    """optax.adam(learning_rate), as the RL learners call it, on a tree of
+    parameters (nested dicts and lists, or one tensor): `init(params)` gives
+    {"count": 0, "mu", "nu"}, the moments trees congruent with `params` in
+    the params' dtype; `update(grads, opt_state, params)` takes the
+    gradients in the params' leaf order (`tree_leaves`) and updates the
+    parameters and the moments in place."""
+
+    def init(params) -> Dict:
+        def zeros(p):
+            return torch.zeros_like(p, requires_grad=False)
+
+        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(grads, opt_state: Dict, params) -> Dict:
+        count = opt_state["count"] + 1
+        upd = _scale_by_adam(list(grads), tree_leaves(opt_state["mu"]),
+                             tree_leaves(opt_state["nu"]), count, b1, b2, eps)
+        torch._foreach_add_(tree_leaves(params), upd, alpha=-learning_rate)
+        return {**opt_state, "count": count}
 
     return Optimizer(init, update)
 
@@ -223,6 +257,17 @@ class LMTrainContext:
         step = state["step"] + 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": step}
         return {"params": params, "opt_state": opt_state, "step": step}, metrics
+
+    def state_placements(self) -> Dict[str, Any]:
+        """The placements of the state's tensors under the mesh, for a
+        sharded checkpoint (`air.Checkpoint.from_torch_state_sharded`, and
+        `get_torch_state` to restore under this context's strategy): the
+        parameters', and the optimizer moments', which are lists in the
+        parameters' leaf order."""
+        if self.mesh is None:
+            raise ValueError("a context without a mesh holds its state whole")
+        leaves = _leaves(self.placements)
+        return {"params": self.placements, "opt_state": {"mu": list(leaves), "nu": list(leaves)}}
 
     def apply(self, params, tokens) -> torch.Tensor:
         """Logits [B, S, vocab] f32 of a global [B, S] batch of tokens; under

@@ -49,7 +49,13 @@ from ray_tpu_torch.ops.rotary import apply_rope
 from ray_tpu_torch.parallel.collectives import copy_to, gather_from, gather_shards, reduce_from
 from ray_tpu_torch.parallel.mesh import mesh_axis_sizes
 from ray_tpu_torch.parallel.pipeline import pipeline_apply
-from ray_tpu_torch.parallel.sharding import Rules, local_placements, shard_index, tree_map
+from ray_tpu_torch.parallel.sharding import (
+    Rules,
+    local_placements,
+    shard_index,
+    tree_leaves,
+    tree_map,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -573,10 +579,7 @@ def _remat_layer(
 
 def _leaves(tree: Dict) -> List[torch.Tensor]:
     """The tensors of a parameter tree, in insertion order."""
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
+    return tree_leaves(tree)
 
 
 def _index_layer(tree: Dict, i: int) -> Dict:

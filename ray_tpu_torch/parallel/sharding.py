@@ -183,11 +183,24 @@ def placement(shape, logical_axes, rules: Rules, sizes: Mapping[str, int]) -> Pl
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """`fn` over the leaves of nested dicts (anything but a dict is a
-    leaf), with the congruent leaves of `rest`, looked up by key."""
+    """`fn` over the leaves of nested dicts and lists (anything else is a
+    leaf: a tuple too, as a `Placement` is), with the congruent leaves of
+    `rest`, looked up by key or index."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts and lists, in insertion order (the order
+    `tree_map` visits them)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def local_placements(shapes, axes_tree, rules: Rules, mesh) -> Dict[str, Any]:

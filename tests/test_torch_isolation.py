@@ -1,5 +1,5 @@
-"""Guards for the PyTorch port: it stands alone (no jax, nothing of
-ray_tpu), it does not quietly run on the CPU, and its kernel wrapper raises
+"""Guards for the PyTorch port: it stands alone (no jax, optax or orbax,
+nothing of ray_tpu), it does not quietly run on the CPU, and its kernel wrapper raises
 on what the kernel does not take instead of falling back."""
 
 import ast
@@ -27,7 +27,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "ray_tpu")
+    return top in ("jax", "jaxlib", "ray_tpu", "optax", "orbax")
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
@@ -40,7 +40,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
             "ray_tpu_torch/parallel/__init__.py", "ray_tpu_torch/parallel/mesh.py",
             "ray_tpu_torch/parallel/sharding.py", "ray_tpu_torch/parallel/bootstrap.py",
             "ray_tpu_torch/parallel/collectives.py", "ray_tpu_torch/parallel/pipeline.py",
-            "ray_tpu_torch/models/moe.py", "ray_tpu_torch/dryrun.py"} <= scanned
+            "ray_tpu_torch/models/moe.py", "ray_tpu_torch/dryrun.py",
+            "ray_tpu_torch/air/__init__.py", "ray_tpu_torch/air/checkpoint.py"} <= scanned
+    rllib = {"__init__", "sample_batch", "env", "policy", "rl_module", "env_runner", "ppo",
+             "impala", "appo", "dqn", "sac", "multi_agent"}
+    assert {f"ray_tpu_torch/rllib/{m}.py" for m in rllib} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)
     ]
