@@ -433,7 +433,7 @@ class LMServer:
         self.cfg = cfg
         # Weights are cast to the compute dtype once at load: forward casts
         # each weight to it at use, so the rounding is the same.
-        self.params = _tree_map(lambda t: t.to(cfg.dtype), params)
+        self.params = tree_map(lambda t: t.to(cfg.dtype), params)
         self.batches = []  # (size, seconds, tokens, last-position logits)
 
     @serve.batch(max_batch_size=MAX_BATCH, batch_wait_timeout_s=2.0)
@@ -451,10 +451,6 @@ class LMServer:
 
     def __call__(self, tokens):
         return self.predict_batch(list(tokens))
-
-
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def phase_serving(card: str) -> tuple:
@@ -767,7 +763,7 @@ def counted_step(ctx, state, batch, expect: tuple, what: str):
 
 
 def clone_state(state) -> dict:
-    params = _tree_map(lambda t: t.detach().clone().requires_grad_(True), state["params"])
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), state["params"])
     opt = state["opt_state"]
     return {"params": params, "step": state["step"],
             "opt_state": {"count": opt["count"], "mu": [t.clone() for t in opt["mu"]],
@@ -1092,7 +1088,7 @@ def _loss_and_grads(cfg, params, batch, schedule: str, m: int = 0):
     decoder on `batch`: unpipelined, or its layers as a GPipe or 1F1B
     schedule of PP_STAGES stages in one process, embedding and head around
     it. The 1F1B step computes no embedding or head gradient."""
-    layers = transformer._leaves(params["layers"])
+    layers = tree_leaves(params["layers"])
     positions = torch.arange(batch["tokens"].shape[1], device="cuda")
     def head(y, t):
         return cross_entropy_loss(transformer._logits(params, y, cfg, None), t)
@@ -1108,7 +1104,7 @@ def _loss_and_grads(cfg, params, batch, schedule: str, m: int = 0):
         return loss.detach(), torch.autograd.grad(loss, layers)
     loss, grads = pipeline_train_step_1f1b(stage, head, stacked, x.detach(), batch["targets"],
                                            n_microbatches=m)
-    return loss, [g.reshape(w.shape) for g, w in zip(transformer._leaves(grads), layers)]
+    return loss, [g.reshape(w.shape) for g, w in zip(tree_leaves(grads), layers)]
 
 
 def _grad_norm(grads) -> float:
@@ -1145,7 +1141,7 @@ def pipeline_schedules() -> tuple:
     gradients, times (the second of two runs each) and peak memory."""
     cfg = bench_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    for leaf in transformer._leaves(params):
+    for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
     batch = train_batch(cfg)
     L = cfg.n_layers
@@ -1316,7 +1312,7 @@ def one_7b_layer_temporaries() -> dict:
     above the parameters, which the 7B accounting adds to its state."""
     cfg = dataclasses.replace(dryrun.llama_7b_train_config(), n_layers=1)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    leaves = transformer._leaves(params)
+    leaves = tree_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     toks = torch.zeros((1, cfg.max_seq_len), dtype=torch.long, device="cuda")
@@ -1368,13 +1364,6 @@ RL_METRIC_ATOL = 1e-6
 def tensors_of(tree) -> list:
     """A state's tensors, in leaf order (counts and generators left out)."""
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
-
-
-def cpu_copy(tree):
-    """A CPU copy of a learner state's tensors (requires_grad kept); other
-    leaves (counts, generators) shared."""
-    return tree_map(lambda x: x.detach().to("cpu", copy=True).requires_grad_(x.requires_grad)
-                    if isinstance(x, torch.Tensor) else x, tree)
 
 
 class draws:
@@ -1468,7 +1457,7 @@ def ppo_on_card() -> dict:
         steps += batch.count
         returns = (returns + [x for r in results for x in r["episode_returns"]])[-100:]
         if it == 1:
-            cpu_state = cpu_copy(state)
+            cpu_state = Checkpoint.from_torch_state(state).get_torch_state()
             with draws(ppo, "_permutation") as perms:
                 perms.record()
                 (state, metrics), ms, host = timed_update(update, state, cols)
@@ -1519,7 +1508,7 @@ def vtrace_learners_on_card() -> dict:
         trajs = [r.sample_trajectory(state["params"]) for r in runners]
         batch = {k: np.concatenate([t["batch"][k] for t in trajs], axis=1)
                  for k in trajs[0]["batch"]}  # [T, N] = [16, 16]
-        cpu_state = cpu_copy(state)
+        cpu_state = Checkpoint.from_torch_state(state).get_torch_state()
         group = LearnerGroup(update, 1)
         check(group.group is not None, f"{name}: the learner group is not on the NCCL group")
         card, ms, host = timed_update(group.update, state, batch)
@@ -1542,7 +1531,7 @@ def dqn_on_card() -> dict:
     rng = np.random.default_rng(SEED)
     stacked = [buffer.sample(32, rng) for _ in range(4)]
     batches = tuple(np.stack([s[i] for s in stacked]) for i in range(5))
-    cpu_state = cpu_copy(state)
+    cpu_state = Checkpoint.from_torch_state(state).get_torch_state()
     (state, loss), ms, host = timed_update(update_many, state, batches)
     cpu_state, cpu_loss = cpu_update_many(cpu_state, batches)
     held = held_against_cpu("dqn (update_many U=4, then sync_target)",
@@ -1565,7 +1554,7 @@ def sac_on_card() -> dict:
     b = got["batch"]
     buffer.add_batch(b["obs"], b["actions"], b["rewards"], b["next_obs"], b["terminateds"])
     batch = buffer.sample(cfg.batch_size, np.random.default_rng(SEED))
-    cpu_state = cpu_copy(state)
+    cpu_state = Checkpoint.from_torch_state(state).get_torch_state()
     with draws(sac, "_normal") as noise:
         noise.record()
         card, ms, host = timed_update(update, state, batch)
@@ -1640,12 +1629,15 @@ def checkpoint_on_card(mesh) -> tuple:
         restore_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(path, ignore_errors=True)
-    same = all(torch.equal(a, b) for a, b in zip(tensors, tensors_of(restored)))
+    back = tensors_of(restored)
+    same = len(back) == len(tensors) and all(torch.equal(a, b) for a, b in zip(tensors, back))
     check(same, "checkpoint: the restored state is not the saved one bit for bit")
     resumed, m_resumed = counted_step(ctx, restored, batch, per_step, "resumed step")
     unbroken, m_unbroken = counted_step(ctx, state, batch, per_step, "unbroken step")
-    bitwise = torch.equal(m_resumed["loss"], m_unbroken["loss"]) and all(
-        torch.equal(a, b) for a, b in zip(tensors_of(resumed), tensors_of(unbroken)))
+    a_leaves, b_leaves = tensors_of(resumed), tensors_of(unbroken)
+    bitwise = (torch.equal(m_resumed["loss"], m_unbroken["loss"])
+               and len(a_leaves) == len(b_leaves)
+               and all(torch.equal(a, b) for a, b in zip(a_leaves, b_leaves)))
     out = {"config": "bench.py head: d2048 L16 H16/16 ff5504 V32000, bf16 params and Adam "
                      "moments, after one step, fsdp on a one-rank NCCL mesh",
            "state_bytes": state_bytes, "bytes_written": written, "free_bytes_before": free,

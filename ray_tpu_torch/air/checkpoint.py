@@ -216,6 +216,9 @@ def _merge(target, saved):
     if isinstance(saved, dict):
         return {k: _merge(target[k], v) for k, v in saved.items()}
     if isinstance(saved, list):
+        if len(target) != len(saved):
+            raise ValueError(f"target has a list of {len(target)} where the checkpoint "
+                             f"holds {len(saved)}")
         return [_merge(t, v) for t, v in zip(target, saved)]
     if isinstance(saved, (torch.Tensor, _Tensor)):
         if not isinstance(target, torch.Tensor):
@@ -234,6 +237,15 @@ def _to_host(state):
         return copy.deepcopy(x)
 
     return _map_leaves(state, host)
+
+
+def _spans_world(mesh) -> None:
+    """A sharded save or load is a collective of the default process group
+    (DCP's, the pickle's one writer at rank 0, the barrier), so its mesh
+    must hold every rank."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the mesh holds {mesh.size()} of the {dist.get_world_size()} ranks; "
+                         "a sharded checkpoint needs a mesh over all of them")
 
 
 def _mesh_device(mesh) -> torch.device:
@@ -274,6 +286,8 @@ def _save_state(path: str, state, mesh=None, placements=None) -> None:
     them: with a mesh, each rank's shards as DTensors (a collective of the
     mesh's ranks; rank 0 writes the tree); without, this process's tensors
     whole (a local save)."""
+    if mesh is not None:
+        _spans_world(mesh)
     places = dict(_flatten(placements)) if placements is not None else {}
     tensors = {}
 
@@ -299,6 +313,8 @@ def _load_state(path: str, target=None, placements=None, mesh=None):
     target's tensors, or into new ones: whole on the CPU, or with a mesh
     this rank's shards under `placements` on the mesh's device (a
     collective of the mesh's ranks)."""
+    if mesh is not None:
+        _spans_world(mesh)
     tree = _read_pickle(os.path.join(path, _TREE_FILE))
     if target is not None:
         tree = _merge(target, tree)

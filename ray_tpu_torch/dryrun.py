@@ -29,7 +29,6 @@ from ray_tpu_torch.models.lm import LMTrainContext, _new_state, default_optimize
 from ray_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn, moe_param_axes
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
-    _leaves,
     _resolve_device,
     forward,
     init_params,
@@ -50,6 +49,7 @@ from ray_tpu_torch.parallel.sharding import (
     resolve_rules,
     shard_tensor,
     shard_tree,
+    tree_leaves,
     tree_map,
 )
 
@@ -104,7 +104,7 @@ def state_bytes_per_rank(config: TransformerConfig, strategy: str,
     params = tree_map(local, param_shapes(config), param_axes(config))
     state = _new_state(params, default_optimizer())
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-    out = {"params": nbytes(_leaves(params)), "grads": nbytes(_leaves(params)),
+    out = {"params": nbytes(tree_leaves(params)), "grads": nbytes(tree_leaves(params)),
            "moments": nbytes(state["opt_state"]["mu"]) + nbytes(state["opt_state"]["nu"])}
     out["total"] = sum(out.values())
     return out

@@ -70,7 +70,7 @@ def state_from_numpy(
 _TRAINABLE = ("params", "log_alpha")
 
 
-def learner_state_from_numpy(state: Dict[str, Any], *, device, seed: int = 0) -> Dict[str, Any]:
+def learner_state_from_numpy(state: Dict[str, Any], *, device) -> Dict[str, Any]:
     """A JAX RL learner's state (`init_state` or an update's output of the
     JAX package's `rllib` learners, every leaf a numpy array, as
     `jax.tree_util.tree_map(np.asarray, state)` gives it) -> the port's
@@ -82,13 +82,13 @@ def learner_state_from_numpy(state: Dict[str, Any], *, device, seed: int = 0) ->
       ScaleByAdamState) becomes {"count": int, "mu", "nu"}, the moments'
       trees as the port's `adam` keeps them;
     - the PRNG "key" becomes "rng", a torch.Generator on `device` seeded
-      with `seed`: jax.random cannot be reproduced.
+      with 0: jax.random cannot be reproduced.
     """
     out = {}
     for k, v in state.items():
         adam_state = _adam_state(v)
         if k == "key":
-            out["rng"] = torch.Generator(device=device).manual_seed(seed)
+            out["rng"] = torch.Generator(device=device).manual_seed(0)
         elif adam_state is not None:
             out[k] = {"count": int(adam_state.count),
                       "mu": _tensors(adam_state.mu, device, False),

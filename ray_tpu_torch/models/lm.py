@@ -22,7 +22,6 @@ from torch.distributed.device_mesh import DeviceMesh
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     _as_axes,
-    _leaves,
     _resolve_device,
     _sharded,
     forward,
@@ -121,13 +120,14 @@ def _scale_by_adam(grads: List[torch.Tensor], mu: List[torch.Tensor], nu: List[t
     return upd
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
-    """optax.adam(learning_rate), as the RL learners call it, on a tree of
-    parameters (nested dicts and lists, or one tensor): `init(params)` gives
-    {"count": 0, "mu", "nu"}, the moments trees congruent with `params` in
-    the params' dtype; `update(grads, opt_state, params)` takes the
-    gradients in the params' leaf order (`tree_leaves`) and updates the
-    parameters and the moments in place."""
+def adam(learning_rate: float) -> Optimizer:
+    """optax.adam(learning_rate) with its default b1, b2 and eps, as the RL
+    learners call it, on a tree of parameters (nested dicts and lists, or
+    one tensor): `init(params)` gives {"count": 0, "mu", "nu"}, the moments
+    trees congruent with `params` in the params' dtype; `update(grads,
+    opt_state, params)` takes the gradients in the params' leaf order
+    (`tree_leaves`) and updates the parameters and the moments in place."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
     def init(params) -> Dict:
         def zeros(p):
@@ -147,7 +147,7 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 
 
 
 def _new_state(params: Dict, optimizer: Optimizer) -> Dict[str, Any]:
-    leaves = _leaves(params)
+    leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     return {"params": params, "opt_state": optimizer.init(leaves), "step": 0}
@@ -238,7 +238,7 @@ class LMTrainContext:
         `batch` is the global batch, as `make_batch` takes it."""
         batch = self.make_batch(batch)
         params = state["params"]
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         if self.mesh is None:
             logits = forward(params, batch["tokens"], self.config)
             loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
@@ -266,7 +266,7 @@ class LMTrainContext:
         parameters' leaf order."""
         if self.mesh is None:
             raise ValueError("a context without a mesh holds its state whole")
-        leaves = _leaves(self.placements)
+        leaves = tree_leaves(self.placements)
         return {"params": self.placements, "opt_state": {"mu": list(leaves), "nu": list(leaves)}}
 
     def apply(self, params, tokens) -> torch.Tensor:
@@ -309,7 +309,7 @@ class LMTrainContext:
         over its axis; over `tensor` the gradient is never summed), and
         return the global norm: each leaf's squares summed over the axes
         that split it."""
-        places = _leaves(tree_map(lambda _, place: place, params, self.placements))
+        places = tree_leaves(tree_map(lambda _, place: place, params, self.placements))
         squares: Dict[Tuple[str, ...], torch.Tensor] = {}
         for g, place in zip(grads, places):
             axes = _in_order(a for split in place for a in split)

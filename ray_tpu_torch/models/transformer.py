@@ -577,11 +577,6 @@ def _remat_layer(
     return _checkpoint(_out_mlp, x, attn, layer_params, config, sh)
 
 
-def _leaves(tree: Dict) -> List[torch.Tensor]:
-    """The tensors of a parameter tree, in insertion order."""
-    return tree_leaves(tree)
-
-
 def _index_layer(tree: Dict, i: int) -> Dict:
     return {
         k: _index_layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
@@ -646,7 +641,7 @@ def forward(
                          "explicitly, with no ambient mesh scope")
     sh = None if rules is None else _sharded(c, rules, mesh)
     remat = c.remat and torch.is_grad_enabled() and any(
-        t.requires_grad for t in _leaves(params)
+        t.requires_grad for t in tree_leaves(params)
     )
     x = _embed(params, tokens, c, sh)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -665,7 +660,7 @@ def _run_layers(layer_params: Dict, x: torch.Tensor, positions: torch.Tensor,
     """The stacked layers [n, ...] of `layer_params`, in order, each under
     the config's remat segments where `remat`."""
     policy = _remat_policy(config) if config.remat else None
-    for i in range(_leaves(layer_params)[0].shape[0]):
+    for i in range(tree_leaves(layer_params)[0].shape[0]):
         lp = _index_layer(layer_params, i)
         x = _remat_layer(x, lp, positions, config, policy, sh) if remat else _layer(
             x, lp, positions, config, sh)

@@ -158,12 +158,12 @@ class DQNConfig:
         raise algorithm_not_ported("DQN")
 
 
-def huber_loss(predictions: torch.Tensor, targets: torch.Tensor, delta: float = 1.0):
-    """optax.huber_loss, elementwise: quadratic within delta of the target,
-    linear beyond."""
+def huber_loss(predictions: torch.Tensor, targets: torch.Tensor):
+    """optax.huber_loss at its default delta of 1, elementwise: quadratic
+    within 1 of the target, linear beyond."""
     abs_errors = torch.abs(predictions - targets)
-    quadratic = torch.clamp(abs_errors, max=delta)
-    return 0.5 * quadratic ** 2 + delta * (abs_errors - quadratic)
+    quadratic = torch.clamp(abs_errors, max=1.0)
+    return 0.5 * quadratic ** 2 + (abs_errors - quadratic)
 
 
 def _make_learner(cfg: DQNConfig, obs_size: int, num_actions: int, *, device=None):

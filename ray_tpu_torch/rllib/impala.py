@@ -81,27 +81,26 @@ class LearnerGroup:
     whole batch's statistics and the gradients averaged over the group, so
     that every rank ends with the unsharded update's state.
 
-    With `num_learners` equal to the process group's size (`group`, by
-    default the default group) the update runs over the group, collectives
-    included at size 1; with one learner and no group it runs alone. A
-    group spans all its ranks: for fewer learners than ranks, pass a group
-    of that many.
+    With `num_learners` equal to the default process group's size the
+    update runs over that group, collectives included at size 1; with one
+    learner and no group it runs alone. A group of several learners spans
+    every rank.
     """
 
-    def __init__(self, update_fn: Callable, num_learners: int = 1, *, group=None):
+    def __init__(self, update_fn: Callable, num_learners: int = 1):
         if num_learners < 1:
             raise ValueError(f"num_learners={num_learners} must be at least 1")
-        ranks = dist.get_world_size(group) if dist.is_initialized() else 1
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
         if num_learners > ranks:
             raise ValueError(f"num_learners={num_learners} > ranks in the process group {ranks}")
         if 1 < num_learners < ranks:
             raise ValueError(
                 f"num_learners={num_learners} < ranks in the process group {ranks}: a "
-                "learner group spans every rank of its group; pass group= of that many ranks"
+                "learner group spans every rank"
             )
         self.num_learners = num_learners
         spans_group = dist.is_initialized() and num_learners == ranks
-        self.group = (group or dist.group.WORLD) if spans_group else None
+        self.group = dist.group.WORLD if spans_group else None
         self._update = update_fn
 
     def update(self, state, batch):

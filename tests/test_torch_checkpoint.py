@@ -71,6 +71,13 @@ def _no_gather_rank(rank, out_dir):
     assert torch.equal(other["w"], shard_tensor(full, ((), ("data",)), mesh))
     assert ckpt.to_dict()["tag"] == "x"
     assert torch.equal(ckpt.to_dict()["torch_state"]["w"], full)
+    # DCP, the one pickle writer and the barrier are the default group's:
+    # a mesh over some of its ranks is refused, on save and on load.
+    part = type("Mesh", (), {"size": lambda self: 2})()
+    with pytest.raises(ValueError, match="a mesh over all of them"):
+        Checkpoint.from_torch_state_sharded(state, f"{out_dir}/part", part, place)
+    with pytest.raises(ValueError, match="a mesh over all of them"):
+        ckpt.get_torch_state(placements=place, mesh=part)
 
 
 def test_sharded_checkpoint_no_gather(tmp_path):
@@ -223,3 +230,19 @@ def test_torch_state_checkpoint_is_a_copy(tmp_path):
     assert not os.path.exists(d)
     with pytest.raises(ValueError, match="no torch state"):
         Checkpoint.from_dict({"iteration": 0}).get_torch_state()
+
+
+def test_restore_into_a_target_of_another_tree_raises(tmp_path):
+    """A target whose lists are longer or shorter than the saved ones would
+    restore a prefix of the state: it is refused, in dict and directory
+    form."""
+    saved = {"mu": [torch.ones(3), torch.zeros(2)], "count": 1}
+    ckpt = Checkpoint.from_torch_state(saved)
+    on_disk = Checkpoint.from_directory(ckpt.to_directory(str(tmp_path / "ck")))
+    for form in (ckpt, on_disk):
+        for mu in ([torch.empty(3)], [torch.empty(3), torch.empty(2), torch.empty(1)]):
+            with pytest.raises(ValueError, match=f"a list of {len(mu)} where the checkpoint "
+                                                 "holds 2"):
+                form.get_torch_state(target={"mu": mu, "count": 0})
+        back = form.get_torch_state(target={"mu": [torch.empty(3), torch.empty(2)], "count": 0})
+        assert back["count"] == 1 and torch.equal(back["mu"][0], torch.ones(3))

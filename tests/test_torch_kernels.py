@@ -18,6 +18,7 @@ from ray_tpu_torch.models import transformer
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_schedule
 from ray_tpu_torch.parallel import pipeline_apply, pipeline_train_step_1f1b
+from ray_tpu_torch.parallel.sharding import tree_leaves
 
 # Backward kernels against the plain backward in f32 from the same inputs,
 # as a share of the largest |gradient|: bf16 kernels round P and dS to bf16
@@ -349,10 +350,10 @@ def _pipeline_run(cfg, schedule, n_stages, m):
 
     if schedule == "gpipe":
         loss = head(pipeline_apply(stage, stacked, x, n_microbatches=m), targets)
-        leaves = transformer._leaves(stacked)
+        leaves = tree_leaves(stacked)
         return loss.detach(), torch.autograd.grad(loss, leaves)
     loss, grads = pipeline_train_step_1f1b(stage, head, stacked, x, targets, n_microbatches=m)
-    return loss, transformer._leaves(grads)
+    return loss, tree_leaves(grads)
 
 
 @pytest.mark.gpu

@@ -47,7 +47,7 @@ from ray_tpu_torch.parallel import (
     setup_mesh,
     shard_tree,
 )
-from ray_tpu_torch.parallel.sharding import _fit_spec, placement
+from ray_tpu_torch.parallel.sharding import _fit_spec, placement, tree_leaves
 from torch_ranks import run_local_ranks
 
 WORLD = 4
@@ -194,14 +194,14 @@ def _ranks(rank, out_dir):
         places = local_placements(param_shapes(CFG), param_axes(CFG), rules, mesh)
         back = gather_tree(local, places, mesh)
         out[f"round_trip_{name}"] = all(
-            torch.equal(a, b) for a, b in zip(transformer._leaves(back), transformer._leaves(full)))
+            torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(full)))
         if name == "fsdp":
             wq = local["layers"]["attn"]["wq"]
             out["fsdp_wq_bytes"] = (wq.numel() * wq.element_size(),
                                     full["layers"]["attn"]["wq"].numel() * wq.element_size())
             tokens = torch.randint(0, CFG.vocab_size, (2, 16), generator=torch.Generator()
                                    .manual_seed(rank))
-            for leaf in transformer._leaves(local):
+            for leaf in tree_leaves(local):
                 leaf.requires_grad_(True)
             for policy in (None, "qkv_attn"):
                 cfg = TransformerConfig.tiny(remat=True, remat_policy=policy)
