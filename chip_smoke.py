@@ -93,11 +93,27 @@ printing the final line:
    restarts from the checkpoint and runs steps 3 and 4. Every step equals
    phase 5's step of its number bit for bit with 16/16/16 launches, and
    the run's checkpoint restores here to a step equal to the resumed one;
-   times of fit(), the first report, the restart and the worker's step.
+   times of fit(), the first report, the restart and the worker's step;
+10. the serve stack and the batch predictor at phase 3's width, weights and
+   prompts: (a) `serve.run` deploys llama_1b in one replica actor that
+   holds the card (num_gpus=1), and the 16 prompts go concurrently through
+   the deployment's handle, the router and `@serve.batch(max_batch_size=8)`;
+   (b) the same prompts are POSTed from 16 threads to the HTTP proxy; (c)
+   the weights are written as a port Checkpoint beside this script (removed
+   after) and BatchPredictor runs the prompts in batches of 8 in one
+   predictor actor on the card. The replica and the actor launch B1 once a
+   layer a batch and this process never; every batch they ran, rebuilt here
+   in the order they report, gives their logits bit for bit, within
+   LOGIT_TOL of the plain reference attention; HTTP names the handle's
+   token wherever the top-2 gap exceeds LOGIT_TOL; neither process loads
+   the JAX package; and B1 is held against its plain version at every
+   batch size it met. Times of serve.run, the first answer, each request
+   through the handle and through HTTP, the replica's batches on the card,
+   its peak memory, and predict() with its checkpoint load.
 
 Prints JSON lines of the serving and training numbers, the profiles, the
-pipeline and experts, the RL learners, the checkpoint, the trainer and the
-kernels, and last {"ok": true, "device": {...}}.
+pipeline and experts, the RL learners, the checkpoint, the trainer, the
+serve stack and the kernels, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -117,8 +133,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import ray_tpu_torch
 from ray_tpu_torch import dryrun, serve
-from ray_tpu_torch.air import Checkpoint
+from ray_tpu_torch.air import BatchPredictor, Checkpoint, Predictor
 from ray_tpu_torch.models import (
     LMTrainContext,
     MoEConfig,
@@ -410,29 +427,48 @@ def main_backward_times() -> int:
     return 0
 
 
+def check_fwd_case(g, name, b, s, h, hkv, d, dtype, causal) -> tuple:
+    """B1 against its plain version at one shape, from random inputs;
+    returns the largest error in o and the inputs."""
+    q, k, v = rand_qkv(g, b, s, h, hkv, d, dtype)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash.flash_attention_fwd_plain(q.float(), k.float(), v.float(), causal=causal)
+    err_o = (o.float() - o_p).abs().max().item()
+    err_lse = (lse - lse_p).abs().max().item()
+    tol_o, tol_lse = TOL[dtype]
+    ok = err_o <= tol_o and err_lse <= tol_lse and torch.isfinite(o).all().item()
+    print(f"kernel {name}: {b}x{s}x{h}/{hkv}x{d} {str(dtype)[6:]} causal={causal} "
+          f"max|o-plain|={err_o:.3e} (tol {tol_o}) max|lse-plain|={err_lse:.3e} "
+          f"(tol {tol_lse}) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"flash_attn_fwd disagrees with its plain version in case {name}")
+    return err_o, (q, k, v)
+
+
 def phase_kernels(g) -> dict:
     """B1 against its plain version; returns the serving-shape numbers."""
     serving = None
-    for name, b, s, h, hkv, d, dtype, causal in FWD_CASES:
-        q, k, v = rand_qkv(g, b, s, h, hkv, d, dtype)
-        o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        o_p, lse_p = flash.flash_attention_fwd_plain(
-            q.float(), k.float(), v.float(), causal=causal
-        )
-        err_o = (o.float() - o_p).abs().max().item()
-        err_lse = (lse - lse_p).abs().max().item()
-        tol_o, tol_lse = TOL[dtype]
-        ok = err_o <= tol_o and err_lse <= tol_lse and torch.isfinite(o).all().item()
-        print(f"kernel {name}: {b}x{s}x{h}/{hkv}x{d} {str(dtype)[6:]} causal={causal} "
-              f"max|o-plain|={err_o:.3e} (tol {tol_o}) max|lse-plain|={err_lse:.3e} "
-              f"(tol {tol_lse}) {'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"flash_attn_fwd disagrees with its plain version in case {name}")
-        if name == "serving_causal":
-            serving = dict(max_abs_err=err_o, **forward_times(q, k, v))
+    for case in FWD_CASES:
+        err_o, qkv = check_fwd_case(g, *case)
+        if case[0] == "serving_causal":
+            serving = dict(max_abs_err=err_o, **forward_times(*qkv))
             print(f"kernel timing at serving shape: {json.dumps(serving)}", flush=True)
-        del q, k, v, o, lse, o_p, lse_p
+        del qkv
     return serving
+
+
+def llama_1b_params(cfg: TransformerConfig) -> dict:
+    """Phase 3's weights: llama_1b drawn from the seeded generator on the
+    card and cast to the compute dtype once at load (forward casts each
+    weight to it at use, so the rounding is the same)."""
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    return tree_map(lambda t: t.to(cfg.dtype), params)
+
+
+def serving_prompts(cfg: TransformerConfig) -> list:
+    """Phase 3's prompts: N_REQUESTS lists of PROMPT_LEN token ids from SEED."""
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (N_REQUESTS, PROMPT_LEN)).tolist()
 
 
 class LMServer:
@@ -442,9 +478,7 @@ class LMServer:
 
     def __init__(self, cfg: TransformerConfig, params):
         self.cfg = cfg
-        # Weights are cast to the compute dtype once at load: forward casts
-        # each weight to it at use, so the rounding is the same.
-        self.params = tree_map(lambda t: t.to(cfg.dtype), params)
+        self.params = params
         self.batches = []  # (size, seconds, tokens, last-position logits)
 
     @serve.batch(max_batch_size=MAX_BATCH, batch_wait_timeout_s=2.0)
@@ -466,12 +500,9 @@ class LMServer:
 
 def phase_serving(card: str) -> tuple:
     cfg = TransformerConfig.llama_1b()
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    server = LMServer(cfg, init_params(cfg, g, device="cuda"))
+    server = LMServer(cfg, llama_1b_params(cfg))
     torch.cuda.empty_cache()
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (N_REQUESTS, PROMPT_LEN)
-    ).tolist()
+    prompts = serving_prompts(cfg)
     # Warm-up batch (cuBLAS handles and heuristics), outside the counted run.
     server.predict_batch.__wrapped__(server, prompts[:MAX_BATCH])
     server.batches.clear()
@@ -488,22 +519,22 @@ def phase_serving(card: str) -> tuple:
             errors.append(e)
 
     threads = [threading.Thread(target=call, args=(i,)) for i in range(N_REQUESTS)]
-    flash.flash_attention_fwd.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = flash.flash_attention_fwd.launches
+    launches = launch_counts()
     check(not errors, f"request failed: {errors[:1]!r}")
     check(not any(t.is_alive() for t in threads), "a request did not finish")
     check(all(isinstance(o, int) and 0 <= o < cfg.vocab_size for o in outs), "bad answers")
 
     n_batches = len(server.batches)
     check(sum(b[0] for b in server.batches) == N_REQUESTS, "requests lost in batching")
-    check(launches == cfg.n_layers * n_batches,
-          f"flash kernel launched {launches} times for {n_batches} batches "
+    check(launches == (cfg.n_layers * n_batches, 0, 0),
+          f"flash kernels launched {launches} times for {n_batches} batches "
           f"of {cfg.n_layers} layers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -535,7 +566,7 @@ def phase_serving(card: str) -> tuple:
         ],
         "wall_s": wall, "prefill_tokens_per_s": N_REQUESTS * PROMPT_LEN / wall,
         "solo_batch_latency_s": solo, "solo_batch_host_issue_s": solo_issue,
-        "peak_mem_gb": peak_gb, "flash_launches": launches,
+        "peak_mem_gb": peak_gb, "flash_launches": launches[0],
         "max_logit_diff_vs_reference": diff,
     }
     print(json.dumps({"profile": profile_device(lambda: _forward(server, toks))}), flush=True)
@@ -755,6 +786,10 @@ def bench_config() -> TransformerConfig:
 def launch_counts() -> tuple:
     return (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
             flash.flash_attention_bwd.launches_dkv)
+
+
+# The names of launch_counts()' three counts, as columns of a table.
+LAUNCH_KEYS = ("launches", "launches_dq", "launches_dkv")
 
 
 def zero_launch_counts() -> None:
@@ -1782,7 +1817,6 @@ def phase_runtime_trainer(card: str, training: dict) -> tuple:
     phase 5's configuration with a failure and a restart from the sharded
     checkpoint; then the run's checkpoint restored in this process and a
     step from it."""
-    import ray_tpu_torch
     from ray_tpu_torch.air import FailureConfig, RunConfig, ScalingConfig
     from ray_tpu_torch.train import TorchTrainer
 
@@ -1916,6 +1950,376 @@ def phase_runtime_trainer(card: str, training: dict) -> tuple:
           f"bit, launches {first['launches']} each", flush=True)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out, tuple(first["launches"])
+
+
+# Phase 10: the serve stack and the batch predictor. Every wait on them is
+# bounded by this many seconds: a replica's cold start (spawn, torch import,
+# CUDA init, weights, a warm-up batch) must end well inside the
+# controller's 120 s grace for a replica that has not answered a health
+# check, and a replica whose constructor raises fails its first call with
+# that error.
+SERVE_TIMEOUT = 300
+
+
+class LMDeployment:
+    """Phase 10's deployment: llama_1b's decoder with phase 3's weights in a
+    replica actor that holds the card, one forward a batch. A request is
+    {"tokens": [...]}; its answer carries the next token and the top-2 gap
+    of the last-position logits, and with {"logits": True} also the logits
+    row itself (f32), the id of the batch it ran in and its index there.
+    Forwards run one at a time, so that each batch's CUDA-event time is its
+    own; each batch also keeps how long it waited for the card.
+    Pickled by value (this script is __main__): its globals are
+    ray_tpu_torch's, torch's, numpy's and this script's own functions."""
+
+    def __init__(self):
+        t0 = time.perf_counter()
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke: the replica finds no CUDA device")
+        self.cfg = TransformerConfig.llama_1b()
+        self.params = llama_1b_params(self.cfg)
+        self.lock = threading.Lock()
+        self.next_id = 0
+        self.batches = []
+        # A warm-up batch through the whole batch body (cuBLAS handles and
+        # heuristics, and the first launch of every kernel it uses, topk's
+        # included) before the first request.
+        self.predict_batch.__wrapped__(self, [{"tokens": [0] * PROMPT_LEN}] * MAX_BATCH)
+        self.start_s = time.perf_counter() - t0
+
+    @serve.batch(max_batch_size=MAX_BATCH, batch_wait_timeout_s=2.0)
+    def predict_batch(self, requests):
+        formed = time.perf_counter()
+        with self.lock:
+            card_wait_s = time.perf_counter() - formed
+            batch_id, self.next_id = self.next_id, self.next_id + 1
+            toks = torch.tensor([r["tokens"] for r in requests], dtype=torch.long, device="cuda")
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with torch.no_grad():
+                last = forward(self.params, toks, self.cfg)[:, -1, :]
+            end.record()
+            top2 = last.topk(2, dim=-1).values
+            rows = last.cpu().numpy()  # waits for the card
+            tokens, gaps = last.argmax(-1).tolist(), (top2[:, 0] - top2[:, 1]).tolist()
+            self.batches.append({"id": batch_id, "size": len(requests),
+                                 "device_ms": start.elapsed_time(end),
+                                 "card_wait_s": card_wait_s})
+        return [{"token": tokens[i], "gap": gaps[i],
+                 **({"logits": rows[i].copy(), "batch": batch_id, "index": i}
+                    if r.get("logits") else {})}
+                for i, r in enumerate(requests)]
+
+    def __call__(self, request):
+        return self.predict_batch(request)
+
+    def reset(self) -> list:
+        """Zero this process's kernel launch counts, its record of batches
+        and its peak memory; returns the sizes of the batches dropped from
+        the record (those run since the last `stats`)."""
+        with self.lock:
+            sizes = [b["size"] for b in self.batches]
+            zero_launch_counts()
+            self.batches = []
+            torch.cuda.reset_peak_memory_stats()
+        return sizes
+
+    def stats(self) -> dict:
+        """This process's card, B1-B3 launch counts, peak memory and kernel
+        builds, and the batches run since the last `reset` (taken from the
+        record)."""
+        with self.lock:
+            batches, self.batches = self.batches, []
+            return {"device": torch.cuda.get_device_name(),
+                    "launches": launch_counts(),
+                    "batches": batches, "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "foreign_modules": foreign_modules(), "build_s": dict(_build.build_seconds),
+                    "start_s": self.start_s}
+
+
+class LMPredictor(Predictor):
+    """Phase 10's predictor: llama_1b's weights restored from a port
+    Checkpoint onto the predictor actor's card; the next token and the
+    last-position logits row of each prompt of a batch, in one forward, with
+    the actor's B1-B3 launch counts after the batch. Pickled by value, as
+    LMDeployment."""
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, **kw):
+        t0 = time.perf_counter()
+        if not torch.cuda.is_available():
+            raise RuntimeError("chip_smoke: the predictor actor finds no CUDA device")
+        p = cls()
+        p.cfg = TransformerConfig.llama_1b()
+        p.params = tree_map(lambda t: t.to("cuda"), checkpoint.get_torch_state())
+        torch.cuda.synchronize()
+        p.load_s = time.perf_counter() - t0
+        p.batches = 0
+        zero_launch_counts()
+        return p
+
+    def predict(self, batch):
+        toks = torch.as_tensor(np.asarray(batch["tokens"]), dtype=torch.long).to("cuda")
+        with torch.no_grad():
+            last = forward(self.params, toks, self.cfg)[:, -1, :]
+        n = len(toks)
+        out = {"id": np.asarray(batch["id"]), "token": last.argmax(-1).cpu().numpy(),
+               "logits": last.cpu().numpy(), "batch": np.full(n, self.batches),
+               **{k: np.full(n, c) for k, c in zip(LAUNCH_KEYS, launch_counts())},
+               "load_s": np.full(n, self.load_s),
+               "foreign": np.full(n, len(foreign_modules()))}
+        self.batches += 1
+        return out
+
+
+def concurrent_requests(send, prompts, logits: bool) -> tuple:
+    """Each prompt through `send` from a thread of its own, all started
+    together: the answers, each one's latency and the wall time."""
+    n = len(prompts)
+    outs, lat, errors = [None] * n, [None] * n, []
+
+    def call(i):
+        try:
+            t0 = time.perf_counter()
+            outs[i] = send({"tokens": prompts[i], **({"logits": True} if logits else {})})
+            lat[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - reported and failed below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT + 60)
+    wall = time.perf_counter() - t0
+    check(not errors, f"request failed: {errors[:1]!r}")
+    check(not any(t.is_alive() for t in threads), "a request did not finish")
+    return outs, lat, wall
+
+
+def http_post(url: str, body) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as resp:
+        return json.loads(resp.read())["result"]
+
+
+def rebuild_batches(what: str, params, cfg, prompts, outs, batches) -> float:
+    """The batches another process ran, rebuilt here in the order it reports
+    them from the prompts its answers place in them, through this process's
+    kernel path: every logits row must equal that process's bit for bit.
+    Against the plain reference attention every row is within LOGIT_TOL, and
+    the argmax agrees wherever the top-2 gap exceeds it (phase 3's rule).
+    Returns the largest difference from the reference."""
+    place = {(o["batch"], o["index"]): i for i, o in enumerate(outs)}
+    check(len(place) == len(outs), f"{what}: two answers name one place in a batch")
+    check(sum(b["size"] for b in batches) == len(outs), f"{what}: requests lost in batching")
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    diff, clear_n, agree_n = 0.0, 0, 0
+    for b in batches:
+        idx = [place.get((b["id"], j)) for j in range(b["size"])]
+        check(None not in idx, f"{what}: batch {b['id']} has an unanswered place")
+        toks = torch.tensor([prompts[i] for i in idx], dtype=torch.long, device="cuda")
+        theirs = torch.from_numpy(np.stack([outs[i]["logits"] for i in idx])).to("cuda")
+        check(bool(torch.isfinite(theirs).all()), f"{what}: non-finite logits")
+        check([outs[i]["token"] for i in idx] == theirs.argmax(-1).tolist(),
+              f"{what}: batch {b['id']}'s tokens are not its logits' argmax")
+        with torch.no_grad():
+            mine = forward(params, toks, cfg)[:, -1, :]
+            ref = forward(params, toks, ref_cfg)[:, -1, :]
+        check(torch.equal(mine, theirs),
+              f"{what}: batch {b['id']}'s logits differ from this process's kernel path "
+              f"(max |diff| {(mine - theirs).abs().max().item():.3e})")
+        diff = max(diff, (theirs - ref).abs().max().item())
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        agree = theirs.argmax(-1) == ref.argmax(-1)
+        clear_n += int(clear.sum())
+        agree_n += int((agree & clear).sum())
+        check(bool(agree[clear].all()), f"{what}: next token disagrees with the reference")
+    check(diff <= LOGIT_TOL, f"{what}: logits differ from the reference attention by {diff}")
+    print(f"{what}: {len(batches)} batches rebuilt here equal bit for bit; max|logits - "
+          f"reference| = {diff:.4f} (tol {LOGIT_TOL}); argmax agrees on {agree_n}/{clear_n} "
+          f"requests with a top-2 gap over the tolerance", flush=True)
+    return diff
+
+
+def replica_run(handle, send, prompts, logits: bool, n_layers: int, what: str) -> tuple:
+    """One concurrent run of the prompts through the replica, after a
+    warm-up batch of the first MAX_BATCH of them on the same path (the
+    first calls through the proxy and the router): this process's and the
+    replica's B1-B3 counts zeroed just before the run and read just after;
+    the replica must have launched B1 once a layer a batch and B2, B3
+    never, and this process none of them."""
+    warmup_wall = concurrent_requests(send, prompts[:MAX_BATCH], logits)[2]
+    warmup_sizes = ray_tpu_torch.get(handle.reset.remote(), timeout=SERVE_TIMEOUT)
+    zero_launch_counts()
+    outs, lat, wall = concurrent_requests(send, prompts, logits)
+    here = launch_counts()
+    stats = ray_tpu_torch.get(handle.stats.remote(), timeout=SERVE_TIMEOUT)
+    batches = stats["batches"]
+    check(here == (0, 0, 0), f"{what}: this process launched B1-B3 {here} times")
+    check(tuple(stats["launches"]) == (n_layers * len(batches), 0, 0),
+          f"{what}: the replica launched B1-B3 {stats['launches']} times for {len(batches)} "
+          f"batches of {n_layers} layers")
+    check(sum(b["size"] for b in batches) == len(prompts),
+          f"{what}: batch sizes {[b['size'] for b in batches]}")
+    return outs, {"latency_s_median": float(np.median(lat)), "latency_s_max": max(lat),
+                  "wall_s": wall, "prefill_tokens_per_s": len(lat) * PROMPT_LEN / wall,
+                  "batch_sizes": [b["size"] for b in batches],
+                  "batch_device_ms": [b["device_ms"] for b in batches],
+                  "batch_card_wait_s": [b["card_wait_s"] for b in batches],
+                  "warmup_wall_s": warmup_wall, "warmup_batch_sizes": warmup_sizes,
+                  "replica_launches": list(stats["launches"]),
+                  "peak_mem_gb": stats["peak_bytes"] / 1e9}, stats
+
+
+def phase_serve_stack(card: str, serving: dict) -> tuple:
+    """Phase 10: llama_1b served by the port's serve stack from a replica
+    actor on the card, (a) through the deployment's handle and (b) through
+    the HTTP proxy, then (c) the same prompts through BatchPredictor from a
+    port Checkpoint in a predictor actor on the card."""
+    from ray_tpu_torch import data as rd
+
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig.llama_1b()
+    prompts = serving_prompts(cfg)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix=".predict-", dir=os.path.dirname(os.path.abspath(__file__)))
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU") == 1,
+              f"runtime: resources {ray_tpu_torch.cluster_resources()}")
+        serve.start(http_options={"host": "127.0.0.1", "port": 0})
+        try:
+            t0 = time.perf_counter()
+            handle = serve.run(serve.deployment(
+                LMDeployment, name="lm", num_replicas=1, max_concurrent_queries=16,
+                ray_actor_options={"num_gpus": 1}).bind())
+            run_s = time.perf_counter() - t0
+            # The first answer comes once the replica's constructor has run.
+            startup_sizes = ray_tpu_torch.get(handle.reset.remote(), timeout=SERVE_TIMEOUT)
+            first_answer_s = time.perf_counter() - t0
+
+            # (a) Through the deployment's handle.
+            outs_a, handle_s, stats_a = replica_run(
+                handle, lambda r: ray_tpu_torch.get(handle.remote(r), timeout=SERVE_TIMEOUT),
+                prompts, True, cfg.n_layers, "serve stack (handle)")
+            check(stats_a["device"] == torch.cuda.get_device_name(0),
+                  f"the replica ran on {stats_a['device']!r}")
+            check(stats_a["foreign_modules"] == [],
+                  f"the replica loaded {stats_a['foreign_modules']}")
+            check(stats_a["build_s"] and all(s == 0.0 for s in stats_a["build_s"].values()),
+                  f"the replica built kernels again: {stats_a['build_s']}")
+
+            # (b) The same prompts through the HTTP proxy.
+            url = serve.get_http_address() + "/lm"
+            outs_b, http_s, stats_b = replica_run(
+                handle, lambda r: http_post(url, r), prompts, False, cfg.n_layers,
+                "serve stack (HTTP)")
+        finally:
+            serve.shutdown()
+
+        params = llama_1b_params(cfg)
+        diff_a = rebuild_batches("serve stack (handle)", params, cfg, prompts, outs_a,
+                                  stats_a["batches"])
+        clear = [o["gap"] > LOGIT_TOL for o in outs_a]
+        http_agree = [b["token"] == a["token"] for a, b in zip(outs_a, outs_b)]
+        check(all(ok for ok, c in zip(http_agree, clear) if c),
+              "serve stack (HTTP): a clear token differs from the handle's")
+        check(all(set(o) == {"token", "gap"} for o in outs_b),
+              "serve stack (HTTP): an answer carries more than the token and the gap")
+        print(f"serve stack (HTTP): tokens agree with the handle's on "
+              f"{sum(a for a, c in zip(http_agree, clear) if c)}/{sum(clear)} clear prompts "
+              f"({sum(http_agree)}/{N_REQUESTS} in all)", flush=True)
+
+        # (c) Offline batch prediction from a port Checkpoint.
+        t0 = time.perf_counter()
+        ckpt = Checkpoint.from_directory(
+            Checkpoint.from_torch_state(params).to_directory(os.path.join(root, "lm")))
+        save_s = time.perf_counter() - t0
+        ds = rd.from_items([{"id": i, "tokens": p} for i, p in enumerate(prompts)],
+                           parallelism=2)
+        # predict() copies a directory checkpoint into a new temporary
+        # directory, which it leaves behind: keep that copy under `root`.
+        tempfile.tempdir, saved_tempdir = root, tempfile.tempdir
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = BatchPredictor.from_checkpoint(ckpt, LMPredictor).predict(
+                ds, batch_size=MAX_BATCH, num_actors=1, num_gpus_per_actor=1)
+            pred_batches = list(out.iter_batches(batch_size=MAX_BATCH))
+        finally:
+            tempfile.tempdir = saved_tempdir
+        predict_s = time.perf_counter() - t0
+        here = launch_counts()
+        check(here == (0, 0, 0), f"batch predictor: this process launched B1-B3 {here} times")
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+    rows = {k: np.concatenate([b[k] for b in pred_batches]) for k in pred_batches[0]}
+    check(sorted(rows["id"].tolist()) == list(range(N_REQUESTS)),
+          f"batch predictor: ids {rows['id'].tolist()}")
+    check(not rows["foreign"].any(), "batch predictor: the actor loaded the JAX package")
+    launches_c = tuple(int(rows[k].max()) for k in LAUNCH_KEYS)
+    check(launches_c == (cfg.n_layers * 2, 0, 0) and sorted(set(rows["launches"].tolist()))
+          == [cfg.n_layers, 2 * cfg.n_layers],
+          f"batch predictor: launches {sorted(set(rows['launches'].tolist()))}, B2/B3 "
+          f"{launches_c[1:]}")
+    outs_c, batches_c = [None] * N_REQUESTS, []
+    for b in sorted(set(rows["batch"].tolist())):
+        sel = np.flatnonzero(rows["batch"] == b)
+        batches_c.append({"id": b, "size": len(sel)})
+        for j, r in enumerate(sel):
+            outs_c[rows["id"][r]] = {"batch": b, "index": j, "token": int(rows["token"][r]),
+                                     "logits": rows["logits"][r]}
+    check([b["size"] for b in batches_c] == [MAX_BATCH, MAX_BATCH],
+          f"batch predictor: batch sizes {[b['size'] for b in batches_c]}")
+    diff_c = rebuild_batches("batch predictor", params, cfg, prompts, outs_c, batches_c)
+    del params
+
+    # Every batch size B1 met in this phase (the predictor's are checked
+    # above to be MAX_BATCH), against its plain version.
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    sizes = sorted({b["size"] for s in (stats_a, stats_b) for b in s["batches"]}
+                   | set(startup_sizes) | set(handle_s["warmup_batch_sizes"])
+                   | set(http_s["warmup_batch_sizes"]))
+    for b in sizes:
+        check_fwd_case(g, f"serve_stack_b{b}", b, PROMPT_LEN, 16, 16, 128, torch.bfloat16, True)
+    torch.cuda.empty_cache()
+
+    out = {
+        "card": card,
+        "config": "llama_1b (d2048 L16 H16/16 Dh128 ff5504 V32000, bf16 compute), phase 3's "
+                  f"weights and {N_REQUESTS} prompts of {PROMPT_LEN}; one replica actor "
+                  "(num_gpus=1, max_concurrent_queries=16, @serve.batch 8 / 2 s)",
+        "serve_run_s": run_s, "first_answer_s": first_answer_s,
+        "replica_start_s": stats_a["start_s"], "replica_build_s": stats_a["build_s"],
+        "handle": handle_s, "http": http_s,
+        "phase3_batch_latency_s": serving["batch_latency_s"],
+        "phase3_solo_batch_latency_s": serving["solo_batch_latency_s"],
+        "replica_peak_mem_gb": max(handle_s["peak_mem_gb"], http_s["peak_mem_gb"]),
+        "max_logit_diff_vs_reference": diff_a,
+        "predictor": {"save_s": save_s, "predict_s": predict_s,
+                      "load_s": float(rows["load_s"][0]), "batch_sizes": [MAX_BATCH] * 2,
+                      "launches": list(launches_c),
+                      "max_logit_diff_vs_reference": diff_c},
+        "kernel_checks_at_batch": sizes,
+    }
+    print(f"serve stack: card {card}; serve.run {run_s:.2f} s, first answer {first_answer_s:.2f} s "
+          f"(replica start {stats_a['start_s']:.2f} s, kernel build {stats_a['build_s']}); handle "
+          f"median {handle_s['latency_s_median']:.4f} s max {handle_s['latency_s_max']:.4f} s, "
+          f"batches {handle_s['batch_sizes']} of {handle_s['batch_device_ms']} ms on the card; "
+          f"HTTP median {http_s['latency_s_median']:.4f} s max {http_s['latency_s_max']:.4f} s, "
+          f"batches {http_s['batch_sizes']}; predict {predict_s:.2f} s (load "
+          f"{out['predictor']['load_s']:.2f} s)", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out, {"serve_stack": tuple(stats_a["launches"]),
+                 "serve_stack_http": tuple(stats_b["launches"]), "batch_predictor": launches_c}
 
 
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
@@ -2085,6 +2489,10 @@ def main() -> int:
 
     trainer, trainer_launches = phase_runtime_trainer(card, training)
     print(json.dumps({"trainer": trainer}), flush=True)
+    torch.cuda.empty_cache()
+
+    serve_stack, stack_launches = phase_serve_stack(card, serving)
+    print(json.dumps({"serve_stack": serve_stack}), flush=True)
 
     source = "ray_tpu_torch/csrc/"
     kernels = [
@@ -2096,15 +2504,16 @@ def main() -> int:
                    "memory, O+=Pv with P from registers), online softmax in exp2 "
                    "overlapping the next S, 128-row kv tiles, o out through shared memory "
                    "by TMA store",
-         "launches": serve_launches,
-         "launches_by_path": {"serving": serve_launches, "train_step": train_launches[0],
+         "launches": serve_launches[0],
+         "launches_by_path": {"serving": serve_launches[0], "train_step": train_launches[0],
                               "ring_schedule": ring_launches[0],
                               "sharded_train_step": sharded_launches[0],
                               "pp_train_step": sharded_launches[0],
                               "pipeline_gpipe": pp_launches["gpipe"][0],
                               "pipeline_1f1b": pp_launches["1f1b"][0],
                               "checkpoint_resumed_step": ckpt_launches[0],
-                              "trainer_worker_step": trainer_launches[0]},
+                              "trainer_worker_step": trainer_launches[0],
+                              **{k: v[0] for k, v in stack_launches.items()}},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
@@ -2115,14 +2524,15 @@ def main() -> int:
                    "registers, k read transposed), S/dP of the next tile issued ahead of "
                    "dS k of this one",
          "launches": train_launches[1],
-         "launches_by_path": {"serving": 0, "train_step": train_launches[1],
+         "launches_by_path": {"serving": serve_launches[1], "train_step": train_launches[1],
                               "ring_schedule": ring_launches[1],
                               "sharded_train_step": sharded_launches[1],
                               "pp_train_step": sharded_launches[1],
                               "pipeline_gpipe": pp_launches["gpipe"][1],
                               "pipeline_1f1b": pp_launches["1f1b"][1],
                               "checkpoint_resumed_step": ckpt_launches[1],
-                              "trainer_worker_step": trainer_launches[1]},
+                              "trainer_worker_step": trainer_launches[1],
+                              **{k: v[1] for k, v in stack_launches.items()}},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
@@ -2132,14 +2542,15 @@ def main() -> int:
                    "cp.async a tile ahead, wgmma for S^T, dP^T (shared memory) and dV, dK "
                    "(P^T, dS^T from registers)",
          "launches": train_launches[2],
-         "launches_by_path": {"serving": 0, "train_step": train_launches[2],
+         "launches_by_path": {"serving": serve_launches[2], "train_step": train_launches[2],
                               "ring_schedule": ring_launches[2],
                               "sharded_train_step": sharded_launches[2],
                               "pp_train_step": sharded_launches[2],
                               "pipeline_gpipe": pp_launches["gpipe"][2],
                               "pipeline_1f1b": pp_launches["1f1b"][2],
                               "checkpoint_resumed_step": ckpt_launches[2],
-                              "trainer_worker_step": trainer_launches[2]},
+                              "trainer_worker_step": trainer_launches[2],
+                              **{k: v[2] for k, v in stack_launches.items()}},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
     for entry in kernels:

@@ -1,9 +1,8 @@
-"""ray_tpu_torch.air: shared ML plumbing, port of `ray_tpu/air/` (ray:
-python/ray/air/): the checkpoint, the run and scaling configs and the
-result of a run. `batch_predictor` and `preprocessors` are not ported yet
-(ROADMAP A14)."""
+"""ray_tpu_torch.air: shared ML plumbing (ray: python/ray/air/)."""
 
+from ray_tpu_torch.air.batch_predictor import BatchPredictor, Predictor
 from ray_tpu_torch.air.checkpoint import Checkpoint
+from ray_tpu_torch.air import preprocessors
 from ray_tpu_torch.air.config import (
     CheckpointConfig,
     FailureConfig,
@@ -11,12 +10,17 @@ from ray_tpu_torch.air.config import (
     ScalingConfig,
 )
 from ray_tpu_torch.air.result import Result
+from ray_tpu_torch.train import session
 
 __all__ = [
+    "BatchPredictor",
     "Checkpoint",
     "CheckpointConfig",
     "FailureConfig",
+    "Predictor",
     "Result",
     "RunConfig",
     "ScalingConfig",
+    "preprocessors",
+    "session",
 ]

@@ -1,14 +1,14 @@
 """@serve.batch — transparent request batching inside a replica.
 
-A copy of `ray_tpu/serve/batching.py` (pure threading), kept in the port so
-that it imports nothing of ray_tpu. Replicas execute requests on a thread
-pool (one slot per concurrent query), so the batcher is thread-based: the
-first caller into an empty batch becomes the leader, waits up to
+ray: python/ray/serve/batching.py (the `@serve.batch` decorator).  The
+reference's batcher is asyncio-based; replicas here execute requests on a
+thread pool (one slot per concurrent query), so the batcher is thread-based:
+the first caller into an empty batch becomes the leader, waits up to
 batch_wait_timeout_s for the batch to fill to max_batch_size, runs the
 wrapped function ONCE on the list of items, and distributes results.
 
-On the card this is the serving hot path: one batched forward keeps the
-tensor cores on large matrix products instead of batch-1 ones.
+This is the TPU serving hot path: batched JAX inference amortizes dispatch
+and keeps the MXU fed with large matmuls instead of batch-1 GEMVs.
 """
 
 from __future__ import annotations
@@ -109,6 +109,7 @@ def batch(
     """Decorate a method taking a LIST of items and returning a LIST of
     results; callers invoke it with a SINGLE item and get a single result.
 
+    ray: python/ray/serve/batching.py `@serve.batch`.
     """
 
     def deco(fn: Callable):

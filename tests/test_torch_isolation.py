@@ -52,7 +52,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                "_private/serialization", "_native/arena", "util/placement_group",
                "data/dataset", "train/__init__", "train/backend", "train/worker_group",
                "train/backend_executor", "train/data_parallel_trainer", "train/session",
-               "air/config", "air/result"}
+               "air/config", "air/result", "air/preprocessors", "air/batch_predictor",
+               "serve/__init__", "serve/api", "serve/config", "serve/controller",
+               "serve/router", "serve/replica", "serve/http_proxy", "serve/batching"}
     assert {f"ray_tpu_torch/{m}.py" for m in runtime} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)

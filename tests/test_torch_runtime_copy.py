@@ -2,8 +2,8 @@
 
 `ray_tpu_torch` keeps its own copy of the actor runtime (`ray_tpu/` minus
 its compute layer: `_private/`, `_native/`, `util/`, the top-level API
-modules) and of the data and train libraries, so that it imports nothing of
-`ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
+modules), of the data and train libraries, and of the serve stack and the
+AIR batch predictor, so that it imports nothing of `ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
 `ray_tpu_torch`, and differs from it only in the ported definitions named
 in PORTED below. These tests recompute what the copy must hold from the
 source tree, and hold every copied module to its source line for line, so
@@ -33,6 +33,15 @@ TRAINER_MODULES = (
     "ray_tpu.train.data_parallel_trainer", "ray_tpu.air", "ray_tpu.air.config",
     "ray_tpu.air.result",
 )
+# The serve stack and the AIR batch predictor, with the `air` package that
+# exports them (their other imports are the runtime's and the port's own
+# `air.checkpoint`).
+SERVE_MODULES = (
+    "ray_tpu.serve", "ray_tpu.serve.config", "ray_tpu.serve.replica",
+    "ray_tpu.serve.controller", "ray_tpu.serve.router", "ray_tpu.serve.http_proxy",
+    "ray_tpu.serve.api", "ray_tpu.serve.batching", "ray_tpu.air.preprocessors",
+    "ray_tpu.air.batch_predictor",
+)
 
 # Where the copy differs from its rewritten source: (port module, the
 # definition as the port names it, its name in the source, why). "*" is a
@@ -52,8 +61,9 @@ PORTED = [
     ("ray_tpu_torch.air.config", "ScalingConfig", "ScalingConfig",
      "use_gpu reserves one \"GPU\" a worker, as Ray's does, where use_tpu/chips_per_worker "
      "reserve \"TPU\"; the source's mesh_shape, which nothing reads, is left out"),
-    ("ray_tpu_torch.air", "*", "*",
-     "exports the port's Checkpoint, the configs and Result (no predictors yet)"),
+    ("ray_tpu_torch.air.batch_predictor", "BatchPredictor.predict", "BatchPredictor.predict",
+     "num_gpus_per_actor reserves \"GPU\" for each predictor actor where the source's "
+     "num_tpus_per_actor reserves \"TPU\""),
     ("ray_tpu_torch.train.backend", "*", "*",
      "TorchConfig joins a torch.distributed group where JaxConfig joins jax.distributed"),
     ("ray_tpu_torch.train.data_parallel_trainer", "import:ray_tpu_torch.train.backend",
@@ -162,7 +172,7 @@ def _masked(text: str, spans) -> list:
 
 
 def _copied_modules():
-    return sorted(runtime_closure() | set(TRAINER_MODULES))
+    return sorted(runtime_closure() | set(TRAINER_MODULES) | set(SERVE_MODULES))
 
 
 def test_closure_is_the_runtime_and_every_module_has_its_copy():
@@ -176,6 +186,13 @@ def test_closure_is_the_runtime_and_every_module_has_its_copy():
     assert len(closure) >= 50
     missing = [m for m in _copied_modules() if _path(_port_name(m)) is None]
     assert missing == []
+
+
+def test_every_module_the_copies_import_is_in_the_port():
+    imported = set().union(*(_imports(m, _path(m)) for m in _copied_modules()))
+    assert {"ray_tpu._private.pubsub", "ray_tpu.util.tracing", "ray_tpu.air.checkpoint",
+            "ray_tpu.data.block", "ray_tpu.train.session"} <= imported
+    assert [m for m in sorted(imported) if _path(_port_name(m)) is None] == []
 
 
 @pytest.mark.parametrize("module", _copied_modules())
