@@ -128,11 +128,30 @@ printing the final line:
    against the argmax of the learner's Q; SAC, 3 iterations on Pendulum;
    MultiAgentPPO, 1 iteration with a shared and with independent policies.
    Every metric finite, no actor of a stopped algorithm alive, and no
-   attention kernel launched in the phase.
+   attention kernel launched in the phase;
+12. tune over the trainer on the card: (a) `tune.Tuner` over
+   `ray_tpu_torch.train.torch.TorchTrainer` (one worker, use_gpu) at phase
+   5's configuration, learning rates 3e-4 (phase 5's) and 1e-4 as a grid,
+   3 steps each, trials of CPU 1: each trial's worker holds the one "GPU",
+   so the second waits for the card until the first ends; both end
+   TERMINATED, the 3e-4 trial's steps equal phase 5's bit for bit, the 1e-4
+   trial's first step equals phase 5's and its second differs, each worker
+   holds card ids [0], the step windows do not overlap, 16/16/16 launches a
+   step, and get_best_result() is the lower last loss; times of fit(), each
+   trial's first report and the second trial's wait for the card; (b) a
+   function trainable in a trial actor holding the card ({"CPU": 1, "GPU":
+   1}) trains phase 5's configuration at 2 layers for 4 steps, reporting a
+   Checkpoint.from_torch_state each step, fails once after step 2 and is
+   retried from that checkpoint (FailureConfig(max_failures=1)): its steps
+   equal an unbroken run of the same steps here bit for bit, 2/2/2
+   launches a step, card ids [0], the restore's seconds; (c)
+   `prepare_model` in a TorchTrainer worker puts a Linear(4, 1) on the
+   worker's cuda:0, and its loss falls through `prepare_data_loader`'s
+   batches. Every wait of the phase is bounded by TUNE_TIMEOUT.
 
 Prints JSON lines of the serving and training numbers, the profiles, the
 pipeline and experts, the RL learners, the checkpoint, the trainer, the
-serve stack, the RL algorithms and the kernels, and last {"ok": true,
+serve stack, the RL algorithms, tune and the kernels, and last {"ok": true,
 "device": {...}}.
 """
 
@@ -161,6 +180,7 @@ from ray_tpu_torch.models import (
     MoEConfig,
     TransformerConfig,
     cross_entropy_loss,
+    default_optimizer,
     forward,
     init_moe_params,
     init_params,
@@ -2623,6 +2643,351 @@ def phase_rl_algorithms(card: str, phase8: dict) -> tuple:
     return out, launches
 
 
+# Phase 12: tune over the trainer on the card. (a) A Tuner over a
+# TorchTrainer at phase 5's configuration: two learning rates, each trial's
+# trainer worker holding the one "GPU", so the trials take the card in
+# turn; TUNE_LRS[0] is phase 5's rate (default_optimizer), whose steps equal
+# phase 5's bit for bit. (b) A function trainable holding the card itself
+# at TUNE_FN_LAYERS layers, a Checkpoint.from_torch_state each step, a
+# planned failure after TUNE_FN_FAIL_STEP and a retry from that step's
+# checkpoint. (c) prepare_model placing a model on a train worker's card.
+TUNE_LRS = (3e-4, 1e-4)
+TUNE_STEPS = 3
+TUNE_FN_LAYERS = 2
+TUNE_FN_STEPS = 4
+TUNE_FN_FAIL_STEP = 2
+# Every wait of the phase: a Tuner's fit() or a trainer's, each trial's
+# workers' cold starts and the second trial's wait for the card included.
+TUNE_TIMEOUT = 600
+
+
+def process_started_at() -> float:
+    """This process's start, in seconds since the epoch (Linux /proc): a
+    worker that holds a grant of cards is started when the grant is placed."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def tune_trainer_loop(config: dict) -> None:
+    """Phase 12 (a)'s train loop, in a trial's trainer worker: phase 9's
+    loop (phase 5's configuration, seed, batch and single-device step) for
+    TUNE_STEPS steps at the trial's learning rate."""
+    from ray_tpu_torch import train
+
+    entered = time.time()
+    torch.set_float32_matmul_precision("highest")  # as trainer_loop: TF32 off
+    cfg = bench_config()
+    ctx = LMTrainContext(cfg, optimizer=default_optimizer(config["lr"]))
+    state = ctx.init_state(SEED)
+    batch = train_batch(cfg)
+    start = {"lr": config["lr"], "pid": os.getpid(), "placed_at": process_started_at(),
+             "entered_at": entered, "foreign_modules": foreign_modules(),
+             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    for step in range(1, TUNE_STEPS + 1):
+        torch.cuda.synchronize()
+        started_at = time.time()
+        zero_launch_counts()
+        state, m = ctx.train_step(state, batch)
+        torch.cuda.synchronize()
+        launches = list(launch_counts())
+        train.report({**(start if step == 1 else {}), "step": step, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "launches": launches,
+                      "started_at": started_at, "reported_at": time.time()})
+
+
+def tune_function_trainable(config: dict) -> None:
+    """Phase 12 (b)'s trainable, in a trial actor that holds the card: phase
+    5's configuration at TUNE_FN_LAYERS layers, TUNE_FN_STEPS steps, a
+    Checkpoint.from_torch_state with each report; on the first attempt a
+    failure after step TUNE_FN_FAIL_STEP's report, once the driver has
+    taken it (so that the retry starts from its checkpoint)."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import session
+
+    torch.set_float32_matmul_precision("highest")
+    marker = os.path.join(config["storage"], "failed_attempt.json")
+    attempt = 2 if os.path.exists(marker) else 1
+    cfg = dataclasses.replace(bench_config(), n_layers=TUNE_FN_LAYERS)
+    ctx = LMTrainContext(cfg)
+    state = ctx.init_state(SEED)
+    batch = train_batch(cfg)
+    first, restore_s = 1, None
+    resume = tune.get_checkpoint()
+    if resume is not None:
+        t0 = time.perf_counter()
+        state = resume.get_torch_state(target=state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        first = state["step"] + 1
+    start = {"attempt": attempt, "pid": os.getpid(), "restore_s": restore_s,
+             "gpu_ids": ray_tpu_torch.get_gpu_ids(), "foreign_modules": foreign_modules(),
+             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    for step in range(first, TUNE_FN_STEPS + 1):
+        zero_launch_counts()
+        state, m = ctx.train_step(state, batch)
+        torch.cuda.synchronize()
+        launches = list(launch_counts())
+        tune.report({**(start if step == first else {"attempt": attempt}), "step": step,
+                     "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "launches": launches, "reported_at": time.time()},
+                    checkpoint=Checkpoint.from_torch_state(state))
+        if attempt == 1 and step == TUNE_FN_FAIL_STEP:
+            deadline = time.monotonic() + TUNE_TIMEOUT
+            while session.get_session()._reports and time.monotonic() < deadline:
+                time.sleep(0.05)
+            with open(marker, "w") as f:
+                json.dump({"failed_at": time.time()}, f)
+            raise RuntimeError(f"chip_smoke: planned failure after step {step}")
+
+
+def prepare_model_loop(config: dict) -> None:
+    """Phase 12 (c)'s loop, in a train worker holding the card:
+    tests/test_torch_trainer.py's regression (a Linear(4, 1) to a fixed
+    linear map) through prepare_model and prepare_data_loader."""
+    from torch.utils.data import TensorDataset
+
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.torch import prepare_data_loader, prepare_model
+
+    torch.manual_seed(1234)
+    model = prepare_model(torch.nn.Linear(4, 1))
+    device = next(model.parameters()).device
+    opt = torch.optim.SGD(model.parameters(), lr=0.05)
+    x = torch.randn(64, 4, generator=torch.Generator().manual_seed(0))
+    y = x @ torch.tensor([[1.0, -2.0, 3.0, 0.5]]).T + 0.1
+    loader = prepare_data_loader(TensorDataset(x, y), batch_size=16, shuffle=False)
+    losses = []
+    for _ in range(30):
+        for xb, yb in loader:
+            opt.zero_grad()
+            loss = ((model(xb.to(device)) - yb.to(device)) ** 2).mean()
+            loss.backward()
+            opt.step()
+        losses.append(loss.item())
+    session.report({"devices": sorted({str(p.device) for p in model.parameters()}),
+                    "gpu_ids": ray_tpu_torch.get_gpu_ids(), "losses": losses})
+
+
+def bounded(fn, what: str):
+    """fn() in a thread, its result or its exception; the phase fails if it
+    has not returned within TUNE_TIMEOUT seconds."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - raised below, in the caller
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(TUNE_TIMEOUT)
+    check(not t.is_alive(), f"{what} did not return within {TUNE_TIMEOUT} s")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def tuner_over_trainer(training: dict, storage: str) -> dict:
+    """Phase 12 (a): Tuner.fit() over TorchTrainer, two trials in turn on
+    the card, each held to phase 5's steps."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    per_step = [bench_config().n_layers] * 3  # qkv_attn: B1, B2 and B3 once per layer
+    trainer = TorchTrainer(tune_trainer_loop,
+                           scaling_config=ScalingConfig(num_workers=1, use_gpu=True))
+    tuner = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    resources_per_trial={"CPU": 1}),
+        run_config=RunConfig(name="trainer", storage_path=storage))
+    fit_at = time.time()
+    results = bounded(tuner.fit, "tune: Tuner.fit() over TorchTrainer")
+    fit_s = time.time() - fit_at
+    check(len(results) == len(TUNE_LRS), f"tune: {len(results)} trials")
+    hist = {}
+    for t in results.trials:
+        check(t.status == "TERMINATED" and t.error is None,
+              f"tune: trial {t.config} ended {t.status}: {t.error}")
+        h = t.metrics_history
+        check([r["step"] for r in h] == list(range(1, TUNE_STEPS + 1)),
+              f"tune: trial {t.config} reported steps {[r['step'] for r in h]}")
+        hist[h[0]["lr"]] = h
+    check(sorted(hist) == sorted(TUNE_LRS), f"tune: trials at {sorted(hist)}")
+    for lr, h in hist.items():
+        first = h[0]
+        check(first["foreign_modules"] == [], f"tune: lr {lr}'s worker loaded "
+              f"{first['foreign_modules']}")
+        check(first["gpu_ids"] == [0] and first["cuda_visible_devices"] == visible_card(0),
+              f"tune: lr {lr}'s worker holds card ids {first['gpu_ids']}, sees "
+              f"{first['cuda_visible_devices']!r}")
+        for r in h:
+            check(r["launches"] == per_step, f"tune: lr {lr} step {r['step']} launches "
+                  f"{r['launches']}")
+    # Phase 5's rate equals phase 5's steps; the other equals its first step
+    # (the loss and gradient before any update) and differs from the second.
+    base, other = hist[TUNE_LRS[0]], hist[TUNE_LRS[1]]
+    for r in base:
+        i = r["step"] - 1
+        check(r["loss"] == training["losses"][i] and r["grad_norm"] == training["grad_norms"][i],
+              f"tune: lr {TUNE_LRS[0]} step {r['step']} loss {r['loss']!r} grad norm "
+              f"{r['grad_norm']!r}, phase 5 {training['losses'][i]!r} "
+              f"{training['grad_norms'][i]!r}")
+    check(other[0]["loss"] == training["losses"][0]
+          and other[0]["grad_norm"] == training["grad_norms"][0],
+          f"tune: lr {TUNE_LRS[1]}'s first step is not phase 5's")
+    check(other[1]["loss"] != training["losses"][1],
+          f"tune: lr {TUNE_LRS[1]}'s second step equals phase 5's")
+    # The trials took the card in turn: one's steps ended before the other's began.
+    a, b = sorted(hist.values(), key=lambda h: h[0]["started_at"])
+    check(a[-1]["reported_at"] < b[0]["started_at"],
+          "tune: the trials' step windows overlap")
+    best = results.get_best_result()
+    lowest = min(hist.values(), key=lambda h: h[-1]["loss"])
+    check(best.metrics["config"]["lr"] == lowest[0]["lr"]
+          and best.metrics["loss"] == lowest[-1]["loss"],
+          f"tune: get_best_result() is lr {best.metrics['config']['lr']}, the lowest last "
+          f"loss lr {lowest[0]['lr']}")
+    return {"fit_s": fit_s,
+            "first_report_s": {str(lr): h[0]["reported_at"] - fit_at for lr, h in hist.items()},
+            "worker_entered_s": {str(lr): h[0]["entered_at"] - fit_at for lr, h in hist.items()},
+            # Both trials asked for the card at fit()'s start (two trial
+            # actors at once); the second's worker was placed when the
+            # first's released it. Process starts are read from /proc, whose
+            # boot time is whole seconds: only their difference is exact.
+            "second_trial_card_wait_s": b[0]["placed_at"] - a[0]["placed_at"],
+            "handover_s": b[0]["entered_at"] - a[-1]["reported_at"],
+            "step_windows_s": [[h[0]["started_at"] - fit_at, h[-1]["reported_at"] - fit_at]
+                               for h in (a, b)],
+            "losses": {str(lr): [r["loss"] for r in h] for lr, h in hist.items()},
+            "grad_norms": {str(lr): [r["grad_norm"] for r in h] for lr, h in hist.items()},
+            "best_lr": best.metrics["config"]["lr"],
+            "worker_gpu_ids": [h[0]["gpu_ids"] for h in (a, b)],
+            "launches_per_step": dict(zip(("fwd", "dq", "dkv"), base[0]["launches"]))}
+
+
+def function_trial_with_retry(storage: str) -> dict:
+    """Phase 12 (b): a function trainable holding the card, failing once
+    and retried from its checkpoint; its steps against an unbroken run of
+    the same steps in this process."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import FailureConfig, RunConfig
+
+    cfg = dataclasses.replace(bench_config(), n_layers=TUNE_FN_LAYERS)
+    per_step = [TUNE_FN_LAYERS] * 3
+    tuner = tune.Tuner(
+        tune_function_trainable, param_space={"storage": storage},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    resources_per_trial={"CPU": 1, "GPU": 1}),
+        run_config=RunConfig(name="function", storage_path=storage,
+                             failure_config=FailureConfig(max_failures=1)))
+    fit_at = time.time()
+    results = bounded(tuner.fit, "tune: Tuner.fit() of the function trainable")
+    fit_s = time.time() - fit_at
+    (trial,) = results.trials
+    check(trial.status == "TERMINATED" and trial.error is None and trial.num_failures == 1,
+          f"tune: the function trial ended {trial.status} after {trial.num_failures} "
+          f"failures: {trial.error}")
+    hist = trial.metrics_history
+    got = [(r["attempt"], r["step"]) for r in hist]
+    check(got == [(1, 1), (1, 2), (2, 3), (2, 4)], f"tune: reports (attempt, step) {got}")
+    resumed = hist[2]
+    check(resumed["restore_s"] is not None, "tune: the retry did not restore a checkpoint")
+    check(resumed["gpu_ids"] == [0] and resumed["cuda_visible_devices"] == visible_card(0),
+          f"tune: the trial actor holds card ids {resumed['gpu_ids']}, sees "
+          f"{resumed['cuda_visible_devices']!r}")
+    check(hist[0]["foreign_modules"] == [] and resumed["foreign_modules"] == [],
+          "tune: a trial actor loaded the JAX package")
+    for r in hist:
+        check(r["launches"] == per_step, f"tune: function trial attempt {r['attempt']} step "
+              f"{r['step']} launches {r['launches']}")
+    # The same steps unbroken, in this process.
+    ctx = LMTrainContext(cfg)
+    state = ctx.init_state(SEED)
+    batch = train_batch(cfg)
+    unbroken = []
+    for step in range(1, TUNE_FN_STEPS + 1):
+        state, m = counted_step(ctx, state, batch, tuple(per_step), f"unbroken step {step}")
+        unbroken.append((float(m["loss"]), float(m["grad_norm"])))
+    del state
+    for r in hist:
+        check((r["loss"], r["grad_norm"]) == unbroken[r["step"] - 1],
+              f"tune: function trial attempt {r['attempt']} step {r['step']} "
+              f"({r['loss']!r}, {r['grad_norm']!r}) is not the unbroken run's "
+              f"{unbroken[r['step'] - 1]!r}")
+    with open(os.path.join(storage, "failed_attempt.json")) as f:
+        failed_at = json.load(f)["failed_at"]
+    return {"fit_s": fit_s, "restore_s": resumed["restore_s"],
+            "failure_to_resumed_report_s": resumed["reported_at"] - failed_at,
+            "losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+            "trial_gpu_ids": [hist[0]["gpu_ids"], resumed["gpu_ids"]],
+            "launches_per_step": dict(zip(("fwd", "dq", "dkv"), resumed["launches"]))}
+
+
+def prepare_model_on_card() -> dict:
+    """Phase 12 (c): prepare_model places the model on the worker's card."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    t0 = time.time()
+    result = bounded(TorchTrainer(prepare_model_loop,
+                                  scaling_config=ScalingConfig(num_workers=1)).fit,
+                     "tune: prepare_model's trainer")
+    check(result.error is None, f"prepare_model: {result.error!r}")
+    m = result.metrics
+    check(m["devices"] == ["cuda:0"] and m["gpu_ids"] == [0],
+          f"prepare_model: parameters on {m['devices']}, card ids {m['gpu_ids']}")
+    check(m["losses"][-1] < m["losses"][0], f"prepare_model: loss {m['losses']}")
+    return {"fit_s": time.time() - t0, "devices": m["devices"],
+            "first_loss": m["losses"][0], "last_loss": m["losses"][-1]}
+
+
+def phase_tune(card: str, training: dict) -> tuple:
+    """Phase 12: tune over the trainer on the card, a function trial with
+    a retry, and prepare_model on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    storage = tempfile.mkdtemp(prefix=".tune-", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ray_tpu_torch.init(num_cpus=4)
+        try:
+            trainer = tuner_over_trainer(training, os.path.join(storage, "a"))
+            function = function_trial_with_retry(os.path.join(storage, "b"))
+            prepared = prepare_model_on_card()
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    out = {"card": card,
+           "config": "(a) bench.py head (d2048 L16 H16/16 ff5504 V32000, bf16, remat qkv_attn, "
+                     f"batch 16 x 1024), Tuner over TorchTrainer (1 worker, GPU 1), lr grid "
+                     f"{list(TUNE_LRS)}, {TUNE_STEPS} steps, trials with CPU 1; (b) the same at "
+                     f"{TUNE_FN_LAYERS} layers in a function trial with CPU 1 GPU 1, "
+                     f"{TUNE_FN_STEPS} steps, a failure after step {TUNE_FN_FAIL_STEP}, "
+                     "max_failures 1; (c) prepare_model of a Linear(4, 1) in one train worker",
+           "tuner_over_trainer": trainer, "function_trial": function, "prepare_model": prepared,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"tune: card {card}; Tuner over TorchTrainer fit {trainer['fit_s']:.2f} s, first "
+          f"reports at {json.dumps(trainer['first_report_s'])} s, the second trial waited "
+          f"{trainer['second_trial_card_wait_s']:.2f} s for the card (the first's last report "
+          f"to the second's worker in its loop {trainer['handover_s']:.2f} s), lr {TUNE_LRS[0]} steps equal phase 5's bit for bit, "
+          f"best lr {trainer['best_lr']}; function trial fit {function['fit_s']:.2f} s, failure to "
+          f"resumed report {function['failure_to_resumed_report_s']:.2f} s (restore "
+          f"{function['restore_s']:.3f} s), steps equal the unbroken run's; prepare_model on "
+          f"{prepared['devices']}, loss {prepared['first_loss']:.4f} -> "
+          f"{prepared['last_loss']:.4f}", flush=True)
+    print(f"phase 12: {out['seconds']:.1f} s", flush=True)
+    launches = {"trainer": tuple(trainer["launches_per_step"].values()),
+                "function": tuple(function["launches_per_step"].values())}
+    return out, launches
+
+
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
@@ -2798,6 +3163,10 @@ def main() -> int:
 
     rl_algorithms, rl_launches = phase_rl_algorithms(card, rllib["ppo"])
     print(json.dumps({"rl_algorithms": rl_algorithms}), flush=True)
+    torch.cuda.empty_cache()
+
+    tune, tune_launches = phase_tune(card, training)
+    print(json.dumps({"tune": tune}), flush=True)
 
     source = "ray_tpu_torch/csrc/"
     kernels = [
@@ -2819,7 +3188,9 @@ def main() -> int:
                               "checkpoint_resumed_step": ckpt_launches[0],
                               "trainer_worker_step": trainer_launches[0],
                               **{k: v[0] for k, v in stack_launches.items()},
-                              "rl_algorithms": rl_launches[0]},
+                              "rl_algorithms": rl_launches[0],
+                              "tune_trainer_trial": tune_launches["trainer"][0],
+                              "tune_function_trial": tune_launches["function"][0]},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
@@ -2839,7 +3210,9 @@ def main() -> int:
                               "checkpoint_resumed_step": ckpt_launches[1],
                               "trainer_worker_step": trainer_launches[1],
                               **{k: v[1] for k, v in stack_launches.items()},
-                              "rl_algorithms": rl_launches[1]},
+                              "rl_algorithms": rl_launches[1],
+                              "tune_trainer_trial": tune_launches["trainer"][1],
+                              "tune_function_trial": tune_launches["function"][1]},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
@@ -2858,7 +3231,9 @@ def main() -> int:
                               "checkpoint_resumed_step": ckpt_launches[2],
                               "trainer_worker_step": trainer_launches[2],
                               **{k: v[2] for k, v in stack_launches.items()},
-                              "rl_algorithms": rl_launches[2]},
+                              "rl_algorithms": rl_launches[2],
+                              "tune_trainer_trial": tune_launches["trainer"][2],
+                              "tune_function_trial": tune_launches["function"][2]},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
     for entry in kernels:

@@ -19,6 +19,11 @@ reference. This package imports torch and nothing of jax or ray_tpu:
 - `ray_tpu_torch.air`, `ray_tpu_torch.train`, `ray_tpu_torch.data`: the
   checkpoint, the data-parallel trainer (`TorchTrainer`, worker actors
   joined by `TorchConfig` into an NCCL or gloo group) and datasets;
+- `ray_tpu_torch.tune`, `workflow`, `train.torch` and the
+  `util.multiprocessing` and `util.joblib` bridges: copies of the JAX
+  package's libraries over the runtime (a Tuner over `TorchTrainer` runs
+  its trials on the cards in turn), and `parallel`'s host
+  `CollectiveGroup`;
 - the actor runtime below them (`init`, `remote`, `get`, `put`, `wait`,
   `kill`, ...): a copy of `ray_tpu`'s runtime, package name rewritten,
   whose only changes are that it detects GPUs (`/dev/nvidia<N>`),
@@ -29,7 +34,7 @@ reference. This package imports torch and nothing of jax or ray_tpu:
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 
 Importing ray_tpu_torch must stay light: no torch import happens until
-you touch ray_tpu_torch.ops / models / parallel / air / train.
+you touch ray_tpu_torch.ops / models / parallel / air / train / tune.
 """
 
 from __future__ import annotations

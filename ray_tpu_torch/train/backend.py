@@ -22,6 +22,10 @@ from ray_tpu_torch.train.worker_group import WorkerGroup
 # How long a worker waits for its peers to join the group, and a collective
 # for its peers, before it raises.
 _TIMEOUT = datetime.timedelta(seconds=120)
+# How long rank 0's first call waits, its placement included, before the
+# trainer fails: a worker whose card another trainer's worker holds (tune's
+# trials on one card take it in turn) waits for that trainer to end.
+_PLACEMENT_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 @dataclasses.dataclass
@@ -122,7 +126,8 @@ def _destroy_process_group():
 class _TorchBackend(Backend):
     def on_start(self, worker_group: WorkerGroup, backend_config: TorchConfig):
         coordinator = worker_group.execute_single(
-            0, _pick_coordinator, backend_config.coordinator_port, timeout=60
+            0, _pick_coordinator, backend_config.coordinator_port,
+            timeout=_PLACEMENT_TIMEOUT.total_seconds(),
         )
         # All workers join the group (the reference broadcasts rank-0's
         # addr, then every rank calls init_process_group).

@@ -57,6 +57,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                "serve/__init__", "serve/api", "serve/config", "serve/controller",
                "serve/router", "serve/replica", "serve/http_proxy", "serve/batching"}
     assert {f"ray_tpu_torch/{m}.py" for m in runtime} <= scanned
+    libraries = {"tune/__init__", "tune/trial", "tune/search", "tune/schedulers",
+                 "tune/trial_runner", "tune/tuner", "workflow/__init__", "train/torch/__init__",
+                 "train/torch/config", "train/torch/torch_trainer",
+                 "train/torch/train_loop_utils", "util/multiprocessing", "util/joblib"}
+    assert {f"ray_tpu_torch/{m}.py" for m in libraries} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)
     ]

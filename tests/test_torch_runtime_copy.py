@@ -3,8 +3,10 @@
 `ray_tpu_torch` keeps its own copy of the actor runtime (`ray_tpu/` minus
 its compute layer: `_private/`, `_native/`, `util/`, the top-level API
 modules), of the data and train libraries, of the serve stack and the AIR
-batch predictor, and of the RL library's offline reader and policy server,
-so that it imports nothing of `ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
+batch predictor, of the RL library's offline reader and policy server, and
+of the ML libraries and bridges over the runtime (tune, workflows, the
+torch trainer's package, the multiprocessing and joblib shims), so that it
+imports nothing of `ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
 `ray_tpu_torch`, and differs from it only in the ported definitions named
 in PORTED below. These tests recompute what the copy must hold from the
 source tree, and hold every copied module to its source line for line, so
@@ -46,6 +48,15 @@ SERVE_MODULES = (
 # The RL library's modules that hold no JAX (its learners and algorithm
 # classes are the port's own).
 RLLIB_MODULES = ("ray_tpu.rllib.offline", "ray_tpu.rllib.policy_client")
+# The ML libraries and bridges over the runtime: tune, workflows, the torch
+# trainer's package and the multiprocessing and joblib shims.
+LIBRARY_MODULES = (
+    "ray_tpu.tune", "ray_tpu.tune.trial", "ray_tpu.tune.search", "ray_tpu.tune.schedulers",
+    "ray_tpu.tune.trial_runner", "ray_tpu.tune.tuner", "ray_tpu.workflow",
+    "ray_tpu.train.torch", "ray_tpu.train.torch.config", "ray_tpu.train.torch.torch_trainer",
+    "ray_tpu.train.torch.train_loop_utils", "ray_tpu.util.multiprocessing",
+    "ray_tpu.util.joblib",
+)
 
 # Where the copy differs from its rewritten source: (port module, the
 # definition as the port names it, its name in the source, why). "*" is a
@@ -104,6 +115,12 @@ PORTED = [
      "Runtime._release_peer_lease_locked", "gives a worker lease's card ids back"),
     ("ray_tpu_torch", "get_gpu_ids", None,
      "ray.get_gpu_ids(): the card ids of a worker's grant"),
+    ("ray_tpu_torch.train.torch.config", "*", "*",
+     "names the port's one TorchConfig (train/backend.py), whose device=\"cpu\" joins the "
+     "gloo group that the source's second TorchConfig(backend=\"gloo\") joins"),
+    ("ray_tpu_torch.train.torch.train_loop_utils", "prepare_model", "prepare_model",
+     "moves the model to the worker's device, the card the backend bound or the CPU, and "
+     "gives DDP that card, where the source's gloo-only path leaves it on the CPU"),
 ]
 
 
@@ -203,7 +220,7 @@ def _masked(text: str, spans) -> list:
 
 def _copied_modules():
     return sorted(runtime_closure() | set(TRAINER_MODULES) | set(SERVE_MODULES)
-                  | set(RLLIB_MODULES))
+                  | set(RLLIB_MODULES) | set(LIBRARY_MODULES))
 
 
 def test_closure_is_the_runtime_and_every_module_has_its_copy():
@@ -243,7 +260,7 @@ def test_copy_equals_its_source_outside_the_ported_definitions(module):
 
 
 def test_ported_definitions_are_few_and_exist():
-    assert len(PORTED) <= 19
+    assert len(PORTED) <= 21
     for port, name, _, reason in PORTED:
         assert reason
         if name != "*":
