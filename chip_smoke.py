@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --forward-times   # only B1's times (main_forward_times)
     python3 chip_smoke.py --backward-times  # only B2's and B3's (main_backward_times)
+    python3 chip_smoke.py --training        # the build and phase 5 alone (main_training)
 
 Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
@@ -52,12 +53,13 @@ printing the final line:
    kernel), against whole-sequence B1, B2 and B3 and the plain f32
    versions, with its times beside theirs; then `LMTrainContext` under
    dp, fsdp, tp, fsdp_tp, sp, ep, pp and pp_fsdp on a one-rank NCCL mesh at
-   bench.py's head configuration, 2 steps each with exact launch counts,
-   the first loss against the single-device step's, step times and peak
-   memory;
+   bench.py's head configuration cut to 8 of its 16 layers, 2 steps each
+   with exact launch counts, the first loss against the single-device
+   step's at that depth, step times and peak memory;
 7. pipeline and experts: (b) the GPipe (`pipeline_apply`, autograd through
    it) and 1F1B (`pipeline_train_step_1f1b`) schedules of bench.py's head
-   configuration cut into 4 stages of 4 layers, all in one process, at
+   configuration at 8 of its 16 layers, cut into 4 stages of 2 layers, all
+   in one process, at
    batch 16 x 1024 with M = 16 and 4 microbatches, against the unpipelined
    forward and backward: exact launches, loss, gradient norm and each
    stage's gradients, times and peak memory, 1F1B's peak below GPipe's at
@@ -147,12 +149,35 @@ printing the final line:
    launches a step, card ids [0], the restore's seconds; (c)
    `prepare_model` in a TorchTrainer worker puts a Linear(4, 1) on the
    worker's cuda:0, and its loss falls through `prepare_data_loader`'s
-   batches. Every wait of the phase is bounded by TUNE_TIMEOUT.
+   batches. Every wait of the phase is bounded by TUNE_TIMEOUT;
+13. the cluster layer, each part in processes of its own that import this
+   script from its directory: (a) `JobSubmissionClient` submits a job (its
+   log and entrypoint under a .jobs-* directory beside this script, removed
+   after) that trains phase 5's configuration from its seed for 3 steps
+   with the kernels phase 1 built: SUCCEEDED, its losses and grad norms read
+   back from its log equal phase 5's first three bit for bit, 16/16/16
+   launches a step; a second job holds 8 GiB of the card and multiplies
+   until `stop_job`: STOPPED, and neither nvidia-smi nor the card's free
+   memory shows it after; (b) `python -m ray_tpu_torch.scripts.cli start
+   --head` with its session under a .cluster-* directory (removed after), a
+   driver attached by its head.json running phase 3's first batch (llama_1b,
+   its weights and first 8 prompts) as a num_gpus=1 task: the logits equal
+   phase 3's bit for bit, B1 16 times and B2, B3 never, card id 0; `cli
+   status` shows the head's "GPU" 1; `cli stop` ends the head and its
+   worker, off the card; (c) a driver whose head holds no "GPU"
+   (RAY_TPU_CHIPS=0) and a StandardAutoscaler over LocalNodeProvider with
+   one node type {"CPU": 2, "GPU": 1}, max 1: the same batch waits, the
+   autoscaler adds the node, the task runs in its worker on card 0 with the
+   same logits, and the idle node is terminated, its worker off the card;
+   (d) `cli microbenchmark --json`: the port's ray_perf, all eight benches.
+   Times from submit to RUNNING, to the first step and to SUCCEEDED, of the
+   attached driver's task, from demand to node and node to result. Every
+   wait is bounded by CLUSTER_TIMEOUT.
 
 Prints JSON lines of the serving and training numbers, the profiles, the
 pipeline and experts, the RL learners, the checkpoint, the trainer, the
-serve stack, the RL algorithms, tune and the kernels, and last {"ok": true,
-"device": {...}}.
+serve stack, the RL algorithms, tune, the cluster layer and the kernels,
+and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -160,8 +185,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -545,8 +572,10 @@ def phase_serving(card: str) -> tuple:
     server = LMServer(cfg, llama_1b_params(cfg))
     torch.cuda.empty_cache()
     prompts = serving_prompts(cfg)
-    # Warm-up batch (cuBLAS handles and heuristics), outside the counted run.
+    # Warm-up batch (cuBLAS handles and heuristics), outside the counted run;
+    # its logits are the batch phase 13's tasks must give.
     server.predict_batch.__wrapped__(server, prompts[:MAX_BATCH])
+    first_batch = server.batches[0][3].cpu().numpy()
     server.batches.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -612,7 +641,7 @@ def phase_serving(card: str) -> tuple:
         "max_logit_diff_vs_reference": diff,
     }
     print(json.dumps({"profile": profile_device(lambda: _forward(server, toks))}), flush=True)
-    return serving, launches
+    return serving, launches, first_batch
 
 
 def _forward(server, toks):
@@ -982,6 +1011,10 @@ SHARDED_LOSS_RTOL = 1e-3
 # single device's where that clips a bf16 rounding: 1e-5 of either.
 SHARDED_STEP_RTOL = 1e-5
 STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "sp", "ep", "pp", "pp_fsdp")
+# The sharded steps run at this many of bench.py's 16 layers, against the
+# single-device step at the same depth (the script's time: each strategy
+# builds its state and takes 3 steps, one profiled).
+SHARDED_LAYERS = 8
 
 
 def ring_schedule_check(name, b, h, hkv, g) -> tuple:
@@ -1062,12 +1095,12 @@ def ring_schedule_check(name, b, h, hkv, g) -> tuple:
                       "errors": errs, **times}
 
 
-def phase_parallel(card: str, training: dict) -> tuple:
+def phase_parallel(card: str) -> tuple:
     """(a) the ring's chunk schedule at full width in one process; (b) the
     sharded training step under every ported strategy at world size 1, a
-    one-rank NCCL group on the card: its first loss, first gradient norm
-    and second loss against the single-device step's on the same weights
-    and batch, its launches, step time, peak memory and a profile of one
+    one-rank NCCL group on the card, at SHARDED_LAYERS layers: its first
+    loss, first gradient norm and second loss against the single-device
+    step's at that depth on the same weights and batch, its launches, step time, peak memory and a profile of one
     step. The card's machine has one card, so no number here is of more
     than one."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1077,12 +1110,19 @@ def phase_parallel(card: str, training: dict) -> tuple:
         ring_launches = ring_launches or launches
     torch.cuda.empty_cache()
 
-    mesh = build_mesh(MeshSpec(data=1), device_type="cuda")
-    cfg = bench_config()
+    cfg = dataclasses.replace(bench_config(), n_layers=SHARDED_LAYERS)
     batch = train_batch(cfg)  # the single-device step's global batch
     per_step = (cfg.n_layers,) * 3
-    single = {"first_loss": training["losses"][0], "first_grad_norm": training["grad_norms"][0],
-              "second_loss": training["losses"][1]}
+    ctx = LMTrainContext(cfg)  # the single-device step at this depth
+    state, single = ctx.init_state(SEED), []
+    for i in range(2):
+        state, m = counted_step(ctx, state, batch, per_step, f"single-device step {i}")
+        single.append((float(m["loss"]), float(m["grad_norm"])))
+    single = {"first_loss": single[0][0], "first_grad_norm": single[0][1],
+              "second_loss": single[1][0]}
+    del ctx, state
+    torch.cuda.empty_cache()
+    mesh = build_mesh(MeshSpec(data=1), device_type="cuda")
     steps, disagree = {}, []
     for strategy in STRATEGIES:
         ctx = LMTrainContext(cfg, mesh, strategy)
@@ -1122,20 +1162,23 @@ def phase_parallel(card: str, training: dict) -> tuple:
         "note": "one card: ring schedule in one process, sharded step at world size 1 "
                 "(collectives over one rank are skipped); no multi-GPU number",
         "ring_schedule": ring,
-        "sharded_step": {"config": training["config"].replace("dp on one card", "on a "
-                                                              "one-rank mesh"),
+        "sharded_step": {"config": f"bench.py head cut to {cfg.n_layers} layers (d2048 "
+                                   "H16/16 ff5504 V32000, bf16, remat qkv_attn), batch 16 x "
+                                   "1024, on a one-rank mesh",
                          "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
-                         "single_device": {**single, "profile": training["profile"]},
-                         "strategies": steps},
+                         "single_device": single, "strategies": steps},
     }
     return parallel, ring_launches, per_step
 
 
 # -- phase 7: pipeline and experts ----------------------------------------------
 
-# The pipeline schedules at bench.py's head configuration, its 16 layers cut
-# into PP_STAGES stages of 4, all in one process (one card): M = 16, the
-# derived count at batch 16 (the largest divisor up to 4P), and M = 4.
+# The pipeline schedules at bench.py's head configuration cut to PP_LAYERS of
+# its 16 layers (the script's time: the schedules are host-bound, so their
+# time, the profile's above all, goes with the depth), in PP_STAGES stages
+# of 2, all in one process (one card): M = 16, the derived count at batch 16
+# (the largest divisor up to 4P), and M = 4.
+PP_LAYERS = 8
 PP_STAGES = 4
 PP_MICROBATCHES = (16, 4)
 # Against the unpipelined forward and backward on the same weights and
@@ -1227,7 +1270,7 @@ def pipeline_schedules() -> tuple:
     """GPipe and 1F1B in one process at bench.py's head configuration
     against the unpipelined forward and backward: exact launches, loss and
     gradients, times (the second of two runs each) and peak memory."""
-    cfg = bench_config()
+    cfg = dataclasses.replace(bench_config(), n_layers=PP_LAYERS)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
@@ -1239,8 +1282,8 @@ def pipeline_schedules() -> tuple:
     check(launch_counts() == (L, L, L), f"unpipelined launches {launch_counts()}")
     _, ref_s, _, ref_issue = _timed_run(unpipelined)
     ref_norm = _grad_norm(ref)
-    out = {"config": "bench.py head (d2048 L16 H16/16 ff5504 V32000, bf16, remat qkv_attn), "
-                     f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {PP_STAGES} stages of "
+    out = {"config": f"bench.py head cut to {L} layers (d2048 H16/16 ff5504 V32000, bf16, "
+                     f"remat qkv_attn), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {PP_STAGES} stages of "
                      f"{L // PP_STAGES} layers in one process",
            "unpipelined": {"loss": float(ref_loss), "grad_norm": ref_norm, "s": ref_s,
                            "host_issue_s": ref_issue, "peak_mem_gb": ref_peak}}
@@ -2988,6 +3031,439 @@ def phase_tune(card: str, training: dict) -> tuple:
     return out, launches
 
 
+# -- phase 13: the cluster layer ---------------------------------------------------
+
+# Every wait of the phase, a subprocess's run included.
+CLUSTER_TIMEOUT = 300
+CLUSTER_JOB_STEPS = 3
+# The autoscaler's idle timeout: the node goes this long after its last
+# lease is given back (the runtime keeps an idle lease 2 s).
+CLUSTER_IDLE_S = 2.0
+# What the looping job holds on the card, so that the card's free memory
+# shows it come and go; and how far the free memory may stay below where it
+# was once the job is stopped.
+CLUSTER_LOOP_BYTES = 8 << 30
+CLUSTER_FREE_SLACK = 1e9
+# A worker on an in-process node (LocalNodeProvider's) seals a result of
+# max_direct_call_object_size (100 KiB) or more in a store the driver can
+# neither read nor pull from, and the driver's get raises ObjectLostError;
+# the JAX package's runtime does the same. So (c)'s driver sends results of
+# up to this many bytes inline, above the batch's 1 MiB of logits.
+CLUSTER_INLINE_BYTES = 4 << 20
+HERE = os.path.dirname(os.path.abspath(__file__))
+# A subprocess of the phase: this script imported as a module (from HERE,
+# on PYTHONPATH or as the job's working directory) and one of its
+# functions run with the command line's arguments.
+CHILD = "import sys\nimport chip_smoke\nsys.exit(chip_smoke.{entry}(*sys.argv[1:]))\n"
+
+
+def child_script(workdir: str, entry: str) -> str:
+    path = os.path.join(workdir, f"{entry}.py")
+    with open(path, "w") as f:
+        f.write(CHILD.format(entry=entry))
+    return path
+
+
+def child_env(**extra) -> dict:
+    path = os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    return {**os.environ, "PYTHONPATH": path, **extra}
+
+
+def run_child(what: str, cmd: list, **extra) -> subprocess.CompletedProcess:
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, env=child_env(**extra),
+                         timeout=CLUSTER_TIMEOUT)
+    check(out.returncode == 0, f"{what}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    return out
+
+
+def cli(what: str, *args, **extra) -> subprocess.CompletedProcess:
+    return run_child(what, [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args], **extra)
+
+
+def card_apps() -> list:
+    """The processes nvidia-smi lists on the card, one line each (pid, used
+    MiB). Their pids are the host's, which a container does not map to its
+    own, so a process is seen on the card by the count going up and down."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def running(pid: int) -> bool:
+    """The process runs (a zombie nobody has reaped yet does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_until(cond, what: str, timeout: float = 60.0) -> float:
+    """Poll `cond` until it holds; the seconds that took."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"{what}: not within {timeout} s")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def off_the_card(what: str, pids, apps_before: int) -> float:
+    """Wait until none of `pids` runs and nvidia-smi lists no more processes
+    on the card than the `apps_before` it listed before they started."""
+    return wait_until(lambda: not any(running(p) for p in pids)
+                      and len(card_apps()) <= apps_before,
+                      f"{what}: processes {sorted(pids)} still on the card ({card_apps()})")
+
+
+def cluster_job_train(steps: str) -> int:
+    """Phase 13 (a)'s entrypoint, a submitted job's driver: phase 5's first
+    steps (bench.py's head configuration, init_state(SEED), train_batch)
+    through LMTrainContext in this process, with the kernels phase 1
+    built; prints one JSON line of its losses, grad norms, B1-B3 launches a
+    step and when each step ended."""
+    entered = time.time()
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: the job finds no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bench_config()
+    ctx = LMTrainContext(cfg)
+    state = ctx.init_state(SEED)
+    batch = train_batch(cfg)
+    losses, grad_norms, launches, done_at = [], [], [], []
+    for _ in range(int(steps)):
+        zero_launch_counts()
+        state, m = ctx.train_step(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        grad_norms.append(float(m["grad_norm"]))
+        done_at.append(time.time())
+        launches.append(list(launch_counts()))
+    print(json.dumps({"cluster_job": {
+        "device": torch.cuda.get_device_name(0), "pid": os.getpid(), "entered_at": entered,
+        "losses": losses, "grad_norms": grad_norms, "launches": launches,
+        "step_done_at": done_at, "build_s": dict(_build.build_seconds),
+        "foreign_modules": foreign_modules()}}), flush=True)
+    return 0
+
+
+def cluster_job_loop(nbytes: str) -> int:
+    """Phase 13 (a)'s second job: holds `nbytes` of the card and multiplies
+    on it until it is stopped."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: the job finds no CUDA device")
+    hold = torch.empty(int(nbytes), dtype=torch.uint8, device="cuda")
+    x = torch.randn(2048, 2048, device="cuda")
+    torch.cuda.synchronize()
+    print(json.dumps({"on_card": os.getpid(), "holds": hold.numel()}), flush=True)
+    while True:
+        x = torch.tanh(x @ x)
+        torch.cuda.synchronize()
+
+
+def cluster_batch() -> dict:
+    """Phase 13's num_gpus=1 task: phase 3's first batch (llama_1b with
+    phase 3's weights, its first MAX_BATCH prompts) in one forward in this
+    worker; the last-position logits, B1-B3 launches, card ids."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: the task finds no CUDA device")
+    cfg = TransformerConfig.llama_1b()
+    params = llama_1b_params(cfg)
+    toks = torch.tensor(serving_prompts(cfg)[:MAX_BATCH], dtype=torch.long, device="cuda")
+    zero_launch_counts()
+    with torch.no_grad():
+        last = forward(params, toks, cfg)[:, -1, :]
+    launches = launch_counts()
+    return {"logits": last.cpu().numpy(), "launches": launches, "done_at": time.time(),
+            "device": torch.cuda.get_device_name(0), "pid": os.getpid(),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "build_s": dict(_build.build_seconds), "foreign_modules": foreign_modules()}
+
+
+def cluster_attached_driver(address: str, out: str) -> int:
+    """Phase 13 (b)'s driver: attaches to the head at `address` (its
+    head.json), runs cluster_batch there as a num_gpus=1 task, detaches and
+    writes what the task returned to `out`."""
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address=address)
+    try:
+        attach_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(cluster_batch).remote(),
+                                timeout=CLUSTER_TIMEOUT)
+        res.update(attach_s=attach_s, task_s=time.perf_counter() - t0)
+    finally:
+        ray_tpu_torch.shutdown()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def cluster_autoscaled_driver(out: str) -> int:
+    """Phase 13 (c)'s driver, started with RAY_TPU_CHIPS=0: its runtime's
+    head holds no "GPU", so a num_gpus=1 task waits until the autoscaler
+    adds the one {"CPU": 2, "GPU": 1} node it may; the task runs there; the
+    idle node is then terminated. Writes the task's result and the times."""
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.autoscaler import (
+        AutoscalerConfig, LocalNodeProvider, NodeTypeConfig, StandardAutoscaler)
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        head = ray_tpu_torch.cluster_resources()
+        check("GPU" not in head, f"autoscaler: the head holds {head}")
+        provider = LocalNodeProvider()
+        scaler = StandardAutoscaler(provider, AutoscalerConfig(
+            node_types={"gpu": NodeTypeConfig(resources={"CPU": 2.0, "GPU": 1.0},
+                                              max_workers=1)},
+            idle_timeout_s=CLUSTER_IDLE_S))
+        apps_before = len(card_apps())
+        t_demand = time.perf_counter()
+        ref = ray_tpu_torch.remote(num_gpus=1)(cluster_batch).remote()
+        launched = {}
+        deadline = t_demand + CLUSTER_TIMEOUT
+        while not launched and time.perf_counter() < deadline:
+            launched = scaler.update()["launched"]
+            time.sleep(0.05)
+        t_node = time.perf_counter()
+        check(launched == {"gpu": 1}, f"autoscaler: launched {launched}")
+        (node,) = provider.non_terminated_nodes()
+        node_resources = dict(get_runtime().state.nodes[provider.runtime_node_id(node)].resources)
+        res = ray_tpu_torch.get(ref, timeout=CLUSTER_TIMEOUT)
+        t_result = time.perf_counter()
+        passes = []
+        while provider.non_terminated_nodes() and time.perf_counter() < t_result + 120:
+            time.sleep(0.2)
+            passes.append(scaler.update())
+        t_terminated = time.perf_counter()
+        check(provider.non_terminated_nodes() == [], "autoscaler: the idle node was not terminated")
+        check(not any(p["launched"] for p in passes), f"autoscaler: launched again: {passes}")
+        worker_gone_s = off_the_card("autoscaler: the node's worker", [res["pid"]], apps_before)
+        after = ray_tpu_torch.cluster_resources()
+    finally:
+        ray_tpu_torch.shutdown()
+    res.update(head_resources=head, node_resources=node_resources,
+               demand_to_node_s=t_node - t_demand, node_to_result_s=t_result - t_node,
+               result_to_terminated_s=t_terminated - t_result, worker_gone_s=worker_gone_s,
+               resources_after=after)
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def check_batch(what: str, res: dict, phase3_batch: np.ndarray) -> None:
+    """A num_gpus=1 task's batch: phase 3's logits bit for bit, B1 once a
+    layer and B2, B3 never, card id 0, nothing of the JAX package, and the
+    kernels loaded as phase 1 built them."""
+    n_layers = TransformerConfig.llama_1b().n_layers
+    check(res["device"] == torch.cuda.get_device_name(0), f"{what}: the task ran on {res['device']}")
+    check(tuple(res["launches"]) == (n_layers, 0, 0), f"{what}: launches {res['launches']}")
+    check(np.array_equal(res["logits"], phase3_batch),
+          f"{what}: logits differ from phase 3's batch (max |diff| "
+          f"{np.abs(res['logits'] - phase3_batch).max():.3e})")
+    check(res["gpu_ids"] == [0] and res["cuda_visible_devices"] == visible_card(0),
+          f"{what}: card ids {res['gpu_ids']}, CUDA_VISIBLE_DEVICES {res['cuda_visible_devices']!r}")
+    check(res["foreign_modules"] == [], f"{what}: the worker loaded {res['foreign_modules']}")
+    check(set(res["build_s"].values()) <= {0.0}, f"{what}: the worker built {res['build_s']}")
+
+
+def cluster_jobs(training: dict, workdir: str) -> tuple:
+    """(a): a job training phase 5's first steps, and a looping job stopped."""
+    from ray_tpu_torch.job_submission import STOPPED, SUCCEEDED, JobSubmissionClient
+
+    client = JobSubmissionClient(log_dir=os.path.join(workdir, "logs"))
+    renv = {"working_dir": HERE}
+    train_py, loop_py = (child_script(workdir, e) for e in ("cluster_job_train", "cluster_job_loop"))
+    job = client.submit_job(entrypoint=f"{sys.executable} {train_py} {CLUSTER_JOB_STEPS}",
+                            runtime_env=renv)
+    status = client.wait_until_finish(job, timeout=CLUSTER_TIMEOUT)
+    info, logs = client.get_job_info(job), client.get_job_logs(job)
+    check(status == SUCCEEDED, f"job: {status}, its log:\n{logs[-3000:]}")
+    rec = [json.loads(ln) for ln in logs.splitlines() if ln.startswith('{"cluster_job"')]
+    check(len(rec) == 1, f"job: {len(rec)} result lines in its log:\n{logs[-3000:]}")
+    rec = rec[0]["cluster_job"]
+    n = CLUSTER_JOB_STEPS
+    check(rec["losses"] == training["losses"][:n] and rec["grad_norms"] == training["grad_norms"][:n],
+          f"job: losses {rec['losses']} grad norms {rec['grad_norms']}, phase 5 "
+          f"{training['losses'][:n]} {training['grad_norms'][:n]}")
+    per_step = [bench_config().n_layers] * 3
+    check(rec["launches"] == [per_step] * n, f"job: launches {rec['launches']}")
+    check(rec["device"] == torch.cuda.get_device_name(0), f"job: ran on {rec['device']}")
+    check(rec["foreign_modules"] == [], f"job: loaded {rec['foreign_modules']}")
+    check(set(rec["build_s"].values()) <= {0.0}, f"job: built the kernels again: {rec['build_s']}")
+    submitted = info.submission_time
+    job_out = {"submit_to_running_s": info.start_time - submitted,
+               "submit_to_entry_s": rec["entered_at"] - submitted,
+               "submit_to_first_step_s": rec["step_done_at"][0] - submitted,
+               "later_step_s": np.diff(rec["step_done_at"]).tolist(),
+               "submit_to_succeeded_s": info.end_time - submitted,
+               "losses": rec["losses"], "grad_norms": rec["grad_norms"],
+               "launches_per_step": dict(zip(("fwd", "dq", "dkv"), rec["launches"][0]))}
+
+    torch.cuda.empty_cache()
+    free_before, apps_before = torch.cuda.mem_get_info()[0], card_apps()
+    loop = client.submit_job(entrypoint=f"{sys.executable} {loop_py} {CLUSTER_LOOP_BYTES}",
+                             runtime_env=renv)
+    t0 = time.perf_counter()
+    try:
+        wait_until(lambda: '"on_card"' in client.get_job_logs(loop)
+                   or client.get_job_status(loop) != "RUNNING", "looping job", CLUSTER_TIMEOUT)
+        on_card_s = time.perf_counter() - t0
+        lines = [ln for ln in client.get_job_logs(loop).splitlines() if ln.startswith('{"on_card"')]
+        check(len(lines) == 1, f"looping job: {client.get_job_status(loop)}, its log:\n"
+                               f"{client.get_job_logs(loop)[-3000:]}")
+        pid = json.loads(lines[0])["on_card"]
+        free_holding, apps_holding = torch.cuda.mem_get_info()[0], card_apps()
+    finally:
+        t0 = time.perf_counter()
+        stopped = client.stop_job(loop)
+    status = client.wait_until_finish(loop, timeout=60)
+    stop_s = time.perf_counter() - t0
+    check(stopped and status == STOPPED, f"looping job: stop_job {stopped}, {status}")
+    check(free_holding < free_before - 0.9 * CLUSTER_LOOP_BYTES,
+          f"looping job: the card's free memory {free_holding / 1e9:.2f} GB while it ran, "
+          f"{free_before / 1e9:.2f} GB before")
+    check(len(apps_holding) == len(apps_before) + 1,
+          f"looping job: nvidia-smi lists {apps_holding} on the card, before it {apps_before}")
+    gone_s = off_the_card("looping job", [pid], len(apps_before))
+    free_after = torch.cuda.mem_get_info()[0]
+    check(free_after > free_before - CLUSTER_FREE_SLACK,
+          f"looping job: {free_after / 1e9:.2f} GB free after its stop, {free_before / 1e9:.2f} before")
+    job_out["stopped_job"] = {"submit_to_on_card_s": on_card_s, "stop_s": stop_s,
+                              "off_the_card_s": gone_s, "free_gb": [
+                                  free_before / 1e9, free_holding / 1e9, free_after / 1e9]}
+    return job_out, tuple(rec["launches"][0])
+
+
+def cluster_head(workdir: str, phase3_batch: np.ndarray) -> dict:
+    """(b): a head started by the CLI, a driver attached to it running the
+    batch on the card, `status` and `stop`."""
+    session = os.path.join(workdir, "session")
+    apps_before = len(card_apps())
+    t0 = time.perf_counter()
+    cli("cli start", "start", "--head", "--num-cpus", "4", "--session-dir", session)
+    start_s = time.perf_counter() - t0
+    head_json = os.path.join(session, "head.json")
+    with open(os.path.join(session, "head.pid")) as f:
+        head_pid = int(f.read())
+    try:
+        result = os.path.join(workdir, "attached.pkl")
+        t0 = time.perf_counter()
+        run_child("attached driver", [sys.executable, child_script(workdir, "cluster_attached_driver"),
+                                      head_json, result])
+        driver_s = time.perf_counter() - t0
+        with open(result, "rb") as f:
+            res = pickle.load(f)
+        check_batch("attached driver", res, phase3_batch)
+        status = json.loads(cli("cli status", "status", "--address", head_json).stdout)
+        check(status["resources"].get("GPU") == 1.0, f"cli status: {status['resources']}")
+        t0 = time.perf_counter()
+        stop = cli("cli stop", "stop", "--session-dir", session)
+        check(f"pid {head_pid}" in stop.stdout, f"cli stop: {stop.stdout}")
+        gone_s = off_the_card("cli stop", [head_pid, res["pid"]], apps_before)
+        stop_s = time.perf_counter() - t0
+    finally:
+        if running(head_pid):  # a check failed before `cli stop`
+            os.kill(head_pid, signal.SIGTERM)
+            time.sleep(5)
+            if running(head_pid):
+                os.kill(head_pid, signal.SIGKILL)
+    return {"start_s": start_s, "attach_s": res["attach_s"], "first_gpu_task_s": res["task_s"],
+            "driver_process_s": driver_s, "status_resources": status["resources"],
+            "stop_to_off_the_card_s": stop_s, "off_the_card_s": gone_s,
+            "launches": list(res["launches"]), "gpu_ids": res["gpu_ids"]}
+
+
+def cluster_autoscaled(workdir: str, phase3_batch: np.ndarray) -> dict:
+    """(c): the autoscaler adds the one "GPU" node, which runs the batch."""
+    result = os.path.join(workdir, "autoscaled.pkl")
+    t0 = time.perf_counter()
+    run_child("autoscaled driver", [sys.executable, child_script(workdir, "cluster_autoscaled_driver"),
+                                    result], RAY_TPU_CHIPS="0",
+              RAY_TPU_MAX_DIRECT_CALL_OBJECT_SIZE=str(CLUSTER_INLINE_BYTES))
+    driver_s = time.perf_counter() - t0
+    with open(result, "rb") as f:
+        res = pickle.load(f)
+    check_batch("autoscaled node", res, phase3_batch)
+    check(res["node_resources"] == {"CPU": 2.0, "GPU": 1.0}, f"autoscaler: node {res['node_resources']}")
+    check("GPU" not in res["resources_after"], f"autoscaler: after {res['resources_after']}")
+    return {k: res[k] for k in ("head_resources", "node_resources", "demand_to_node_s",
+                                "node_to_result_s", "result_to_terminated_s", "worker_gone_s",
+                                "launches", "gpu_ids")} | {"driver_process_s": driver_s}
+
+
+RAY_PERF_BENCHES = ("single_client_tasks_sync", "single_client_tasks_async",
+                    "multi_client_tasks_async", "1_1_actor_calls_sync", "1_1_actor_calls_async",
+                    "n_n_actor_calls_async", "single_client_put_ops",
+                    "single_client_put_gigabytes")
+
+
+def cluster_microbenchmark(workdir: str) -> dict:
+    """(d): `microbenchmark --json`, the port's ray_perf, all eight benches."""
+    path = os.path.join(workdir, "perf.json")
+    t0 = time.perf_counter()
+    cli("cli microbenchmark", "microbenchmark", "--json", path)
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        rows = json.load(f)
+    check([r["name"] for r in rows[1:]] == list(RAY_PERF_BENCHES),
+          f"ray_perf: benches {[r['name'] for r in rows]}")
+    medians = {r["name"]: r.get("ops_per_s", r.get("gb_per_s")) for r in rows[1:]}
+    check(all(v > 0 for v in medians.values()), f"ray_perf: {medians}")
+    return {"seconds": seconds, "host": {k: v for k, v in rows[0].items() if k != "note"},
+            "median": medians, "runs": {r["name"]: r["runs"] for r in rows[1:]}}
+
+
+def phase_cluster(card: str, training: dict, phase3_batch: np.ndarray) -> tuple:
+    """Phase 13: the cluster layer on the card: (a) jobs, (b) a head
+    started by the CLI with an attached driver, (c) the autoscaler, (d) the
+    microbenchmarks."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    jobs_dir = tempfile.mkdtemp(prefix=".jobs-", dir=HERE)
+    cluster_dir = tempfile.mkdtemp(prefix=".cluster-", dir=HERE)
+    try:
+        jobs, job_launches = cluster_jobs(training, jobs_dir)
+        head = cluster_head(cluster_dir, phase3_batch)
+        autoscaled = cluster_autoscaled(cluster_dir, phase3_batch)
+        perf = cluster_microbenchmark(cluster_dir)
+    finally:
+        shutil.rmtree(jobs_dir, ignore_errors=True)
+        shutil.rmtree(cluster_dir, ignore_errors=True)
+    out = {"card": card,
+           "config": f"(a) a job training bench.py's head configuration {CLUSTER_JOB_STEPS} steps "
+                     "from phase 5's seed and batch, and a job looping on the card, stopped; (b) "
+                     "`cli start --head`, a driver attached by head.json running phase 3's first "
+                     "batch (llama_1b, 8 x 1024) as a num_gpus=1 task, `cli status`, `cli stop`; "
+                     "(c) a driver whose head holds no GPU (RAY_TPU_CHIPS=0), StandardAutoscaler "
+                     "over LocalNodeProvider (one node type CPU 2 GPU 1, max 1, idle timeout "
+                     f"{CLUSTER_IDLE_S} s), the same batch; (d) `cli microbenchmark --json`",
+           "job": jobs, "head": head, "autoscaler": autoscaled, "ray_perf": perf,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"cluster: card {card}; job submit to RUNNING {jobs['submit_to_running_s']:.4f} s, to "
+          f"its first step {jobs['submit_to_first_step_s']:.2f} s, to SUCCEEDED "
+          f"{jobs['submit_to_succeeded_s']:.2f} s, losses equal phase 5's bit for bit, launches "
+          f"{list(job_launches)} a step; the looping job on the card in "
+          f"{jobs['stopped_job']['submit_to_on_card_s']:.2f} s, STOPPED and off the card "
+          f"{jobs['stopped_job']['off_the_card_s']:.2f} s after; head started in "
+          f"{head['start_s']:.2f} s, attached driver's first GPU task {head['first_gpu_task_s']:.2f} s, "
+          f"status GPU {head['status_resources'].get('GPU')}, stop to off the card "
+          f"{head['stop_to_off_the_card_s']:.2f} s; autoscaler demand to node "
+          f"{autoscaled['demand_to_node_s']:.3f} s, node to result "
+          f"{autoscaled['node_to_result_s']:.2f} s, terminated "
+          f"{autoscaled['result_to_terminated_s']:.2f} s after; both batches equal phase 3's bit "
+          f"for bit, card ids [0]", flush=True)
+    print("ray_perf: " + ", ".join(f"{k} {v}" for k, v in perf["median"].items())
+          + " (median ops/s; GB/s for the put bench)", flush=True)
+    print(f"phase 13: {out['seconds']:.1f} s", flush=True)
+    launches = {"cluster_job_step": job_launches,
+                "cluster_attached_batch": tuple(head["launches"]),
+                "cluster_autoscaled_batch": tuple(autoscaled["launches"])}
+    return out, launches
+
+
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
@@ -3112,6 +3588,7 @@ def build_kernels() -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3123,28 +3600,41 @@ def main() -> int:
     print(f"card details (driver, max SM clock, ECC): {details}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds, lap_at = {}, [t_start]
+
+    def lap(phase: str) -> None:
+        """The seconds since the last lap, as the phase's."""
+        now = time.perf_counter()
+        seconds[phase], lap_at[0] = now - lap_at[0], now
 
     compiled = build_kernels()
+    lap("1")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timing = phase_kernels(g)
     torch.cuda.empty_cache()
+    lap("2")
 
-    serving, serve_launches = phase_serving(card)
+    serving, serve_launches, phase3_batch = phase_serving(card)
     print(json.dumps({"serving": serving}), flush=True)
     torch.cuda.empty_cache()
+    lap("3")
 
     train_timing = phase_backward(g)
+    lap("4")
     training, train_launches = phase_training(card)
     print(json.dumps({"training": training}), flush=True)
     torch.cuda.empty_cache()
+    lap("5")
 
     try:
-        parallel, ring_launches, sharded_launches = phase_parallel(card, training)
+        parallel, ring_launches, sharded_launches = phase_parallel(card)
         print(json.dumps({"parallel": parallel}), flush=True)
         torch.cuda.empty_cache()
+        lap("6")
         pipeline, pp_launches = phase_pipeline_experts(card)
         print(json.dumps({"pipeline": pipeline}), flush=True)
         torch.cuda.empty_cache()
+        lap("7")
         rllib, checkpoint, ckpt_launches = phase_rl_checkpoint(card)
     finally:
         if dist.is_initialized():
@@ -3152,21 +3642,31 @@ def main() -> int:
     print(json.dumps({"rllib": rllib}), flush=True)
     print(json.dumps({"checkpoint": checkpoint}), flush=True)
     torch.cuda.empty_cache()
+    lap("8")
 
     trainer, trainer_launches = phase_runtime_trainer(card, training)
     print(json.dumps({"trainer": trainer}), flush=True)
     torch.cuda.empty_cache()
+    lap("9")
 
     serve_stack, stack_launches = phase_serve_stack(card, serving)
     print(json.dumps({"serve_stack": serve_stack}), flush=True)
     torch.cuda.empty_cache()
+    lap("10")
 
     rl_algorithms, rl_launches = phase_rl_algorithms(card, rllib["ppo"])
     print(json.dumps({"rl_algorithms": rl_algorithms}), flush=True)
     torch.cuda.empty_cache()
+    lap("11")
 
     tune, tune_launches = phase_tune(card, training)
     print(json.dumps({"tune": tune}), flush=True)
+    torch.cuda.empty_cache()
+    lap("12")
+
+    cluster, cluster_launches = phase_cluster(card, training, phase3_batch)
+    print(json.dumps({"cluster": cluster}), flush=True)
+    lap("13")
 
     source = "ray_tpu_torch/csrc/"
     kernels = [
@@ -3190,7 +3690,8 @@ def main() -> int:
                               **{k: v[0] for k, v in stack_launches.items()},
                               "rl_algorithms": rl_launches[0],
                               "tune_trainer_trial": tune_launches["trainer"][0],
-                              "tune_function_trial": tune_launches["function"][0]},
+                              "tune_function_trial": tune_launches["function"][0],
+                              **{k: v[0] for k, v in cluster_launches.items()}},
          **timing, "at_training_shape": train_timing["flash_attn_fwd"]},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:151",
@@ -3212,7 +3713,8 @@ def main() -> int:
                               **{k: v[1] for k, v in stack_launches.items()},
                               "rl_algorithms": rl_launches[1],
                               "tune_trainer_trial": tune_launches["trainer"][1],
-                              "tune_function_trial": tune_launches["function"][1]},
+                              "tune_function_trial": tune_launches["function"][1],
+                              **{k: v[1] for k, v in cluster_launches.items()}},
          **train_timing["flash_attn_bwd_dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": source + flash.BWD_SOURCE,
          "replaces": "ray_tpu/ops/pallas/flash_attention.py:199",
@@ -3233,7 +3735,8 @@ def main() -> int:
                               **{k: v[2] for k, v in stack_launches.items()},
                               "rl_algorithms": rl_launches[2],
                               "tune_trainer_trial": tune_launches["trainer"][2],
-                              "tune_function_trial": tune_launches["function"][2]},
+                              "tune_function_trial": tune_launches["function"][2],
+                              **{k: v[2] for k, v in cluster_launches.items()}},
          **train_timing["flash_attn_bwd_dkv"]},
     ]
     for entry in kernels:
@@ -3242,6 +3745,8 @@ def main() -> int:
                                                 **compiled["sass"].get(f"{symbol}<{d}>", {})}
                              for d in flash.HEAD_DIMS}
     print(f"card: {card}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3249,6 +3754,24 @@ def main() -> int:
     return 0
 
 
+def main_training() -> int:
+    """`python3 chip_smoke.py --training`: the kernels built, then phase 5
+    alone (bench.py's head configuration through LMTrainContext), printing
+    its `training` line; the port's `bench` command runs this."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    training, _ = phase_training(card)
+    print(json.dumps({"training": training}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times}
+    modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times,
+             "--training": main_training}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -1,0 +1,215 @@
+"""Pass 3: fault-point registry + fault-spec validation.
+
+Collects every `faults.point("name")` call site in the package into a
+generated catalog (fault_points.txt, regenerated by
+`scripts/ray_tpu_lint.py --fix-allowlist`), then validates every literal
+fault spec in tests/scripts against it:
+
+  * spec grammar — parsed with faults.parse_spec, the REAL parser, so the
+    lint can never accept what the runtime rejects;
+  * point patterns — `peer.send` must be a registered point, `peer.*`
+    must prefix-match at least one (a typo'd clause silently injects
+    nothing: a chaos plan that reports false robustness);
+  * proc selectors — must be a plausible process-tag prefix
+    (main/head/worker/daemon/zygote/actor:...), same silent-no-op hazard.
+
+Specs are recognized at: faults.configure(<literal>), any call whose
+first argument is the literal "RAY_TPU_FAULT_SPEC" and second a string
+(setenv/setdefault), env dict entries, and env subscript assignments.
+Dynamically built specs (f-strings etc.) are out of static reach and
+skipped — the runtime parser still fails loudly on those at configure().
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private import faults
+from ray_tpu_torch._private.analysis.common import Violation, parse_file
+
+PASS = "fault-registry"
+
+# A proc= selector matches by substring against tags of these shapes:
+# main | head | zygote | worker:<wid>[:actor:<Class>] | daemon:<node_id> |
+# io_shard:<idx> (the head's connection-fabric shard processes).
+_VALID_PROC_PREFIXES = (
+    "main", "head", "worker", "daemon", "zygote", "actor:", "io_shard",
+)
+
+CATALOG_HEADER = (
+    "# Generated fault-point catalog — do not edit by hand.\n"
+    "# Regenerate with: python scripts/ray_tpu_lint.py --fix-allowlist\n"
+    "# One registered faults.point(...) name per line.\n"
+)
+
+
+def _is_faults_point(call: ast.Call) -> bool:
+    func = call.func
+    return (
+        isinstance(func, ast.Attribute)
+        and func.attr == "point"
+        and isinstance(func.value, ast.Name)
+        and func.value.id in ("faults", "_faults")
+    )
+
+
+def collect_points(files: Sequence[Tuple[str, str]]) -> Dict[str, List[str]]:
+    """point name -> ["rel:line", ...] over (abspath, rel) files."""
+    points: Dict[str, List[str]] = {}
+    for path, rel in files:
+        tree = parse_file(path)
+        if tree is None:
+            continue
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and _is_faults_point(node):
+                if node.args and isinstance(node.args[0], ast.Constant) and isinstance(
+                    node.args[0].value, str
+                ):
+                    points.setdefault(node.args[0].value, []).append(
+                        f"{rel}:{node.lineno}"
+                    )
+    return points
+
+
+def load_catalog(path: str) -> List[str]:
+    if not os.path.exists(path):
+        return []
+    with open(path, "r", encoding="utf-8") as f:
+        return [
+            line.strip()
+            for line in f
+            if line.strip() and not line.lstrip().startswith("#")
+        ]
+
+
+def write_catalog(points: Dict[str, List[str]], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(CATALOG_HEADER)
+        for name in sorted(points):
+            f.write(name + "\n")
+
+
+def check_catalog(points: Dict[str, List[str]], path: str) -> List[Violation]:
+    committed = set(load_catalog(path))
+    actual = set(points)
+    if committed == actual:
+        return []
+    missing = sorted(actual - committed)
+    extra = sorted(committed - actual)
+    parts = []
+    if missing:
+        parts.append(f"unregistered points {missing}")
+    if extra:
+        parts.append(f"stale catalog entries {extra}")
+    rel = os.path.basename(path)
+    return [
+        Violation(
+            PASS,
+            rel,
+            0,
+            f"{PASS}:catalog:{rel}",
+            f"{rel}: fault-point catalog is stale ({'; '.join(parts)}) — "
+            "regenerate with scripts/ray_tpu_lint.py --fix-allowlist",
+        )
+    ]
+
+
+def _spec_literals(tree: ast.Module) -> List[Tuple[str, int]]:
+    """(spec, line) for every statically recognizable fault-spec literal."""
+    out: List[Tuple[str, int]] = []
+
+    def lit(node) -> Optional[str]:
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            return node.value
+        return None
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            func = node.func
+            if (
+                isinstance(func, ast.Attribute)
+                and func.attr == "configure"
+                and isinstance(func.value, ast.Name)
+                and func.value.id in ("faults", "_faults")
+                and node.args
+            ):
+                s = lit(node.args[0])
+                if s is not None:
+                    out.append((s, node.lineno))
+            elif (
+                len(node.args) >= 2
+                and lit(node.args[0]) == "RAY_TPU_FAULT_SPEC"
+            ):
+                s = lit(node.args[1])
+                if s is not None:
+                    out.append((s, node.lineno))
+        elif isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if k is not None and lit(k) == "RAY_TPU_FAULT_SPEC":
+                    s = lit(v)
+                    if s is not None:
+                        out.append((s, node.lineno))
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if (
+                    isinstance(target, ast.Subscript)
+                    and isinstance(target.slice, ast.Constant)
+                    and target.slice.value == "RAY_TPU_FAULT_SPEC"
+                ):
+                    s = lit(node.value)
+                    if s is not None:
+                        out.append((s, node.lineno))
+    return out
+
+
+def _pattern_registered(pattern: str, points: Dict[str, List[str]]) -> bool:
+    if pattern.endswith("*"):
+        prefix = pattern[:-1]
+        return any(name.startswith(prefix) for name in points)
+    return pattern in points
+
+
+def validate_spec(
+    spec: str, points: Dict[str, List[str]]
+) -> List[str]:
+    """Problem strings for one spec (empty = valid)."""
+    problems: List[str] = []
+    try:
+        clauses = faults.parse_spec(spec)
+    except faults.FaultSpecError as e:
+        return [f"unparseable spec {spec!r}: {e}"]
+    for c in clauses:
+        if not _pattern_registered(c.pattern, points):
+            problems.append(
+                f"clause point {c.pattern!r} matches no registered fault "
+                "point (typo'd clauses silently inject nothing)"
+            )
+        if c.proc is not None and not c.proc.startswith(_VALID_PROC_PREFIXES):
+            problems.append(
+                f"clause proc={c.proc!r} can never match a process tag "
+                f"(tags start with one of {list(_VALID_PROC_PREFIXES)})"
+            )
+    return problems
+
+
+def validate_spec_files(
+    files: Sequence[Tuple[str, str]], points: Dict[str, List[str]]
+) -> List[Violation]:
+    out: List[Violation] = []
+    for path, rel in files:
+        tree = parse_file(path)
+        if tree is None:
+            continue
+        for spec, line in _spec_literals(tree):
+            for problem in validate_spec(spec, points):
+                # Key on the problem text, not the line: spec edits that
+                # introduce a NEW problem always fail fresh.
+                key = f"{PASS}:{rel}:{problem.split('(')[0].strip()}"
+                out.append(
+                    Violation(
+                        PASS, rel, line, key, f"{rel}:{line}: {problem}"
+                    )
+                )
+    return out

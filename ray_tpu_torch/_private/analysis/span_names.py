@@ -1,0 +1,143 @@
+"""Pass 7: span-name registry (the metric-names pattern for traces).
+
+The merged timeline and the span-tree renderers identify spans BY NAME:
+two code sites opening a span with the same literal name are
+indistinguishable in a flamegraph-style rollup (a "serve::route" row
+that is really two different routing paths attributes time to the wrong
+code), and the span namespace — unlike metrics — had no reviewable
+catalog at all.
+
+This pass makes both a CI property:
+
+  * every `tracing.span("literal", ...)` / `span("literal", ...)` call
+    with a literal name is collected into a generated catalog
+    (span_names.txt, regenerated by `scripts/ray_tpu_lint.py
+    --fix-allowlist`), so the span namespace is reviewable in one file
+    and README's tracing section has a source of truth;
+  * DUPLICATE names (the same literal opened at two sites) fail the
+    lint — rename one, or hoist the span to a shared helper;
+  * an UNCATALOGED name (new span not in the committed catalog) fails
+    until the catalog is regenerated — a deliberate, reviewed step.
+
+Dynamically built names (f-strings like `run::{spec.name}`) are out of
+static reach and skipped — they are parameterized families, not fixed
+rows, and the timeline renders them per-instance anyway.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private.analysis.common import Violation, parse_file
+
+PASS = "span-names"
+
+CATALOG_HEADER = (
+    "# Generated span-name catalog — do not edit by hand.\n"
+    "# Regenerate with: python scripts/ray_tpu_lint.py --fix-allowlist\n"
+    "# One literal tracing.span(...) name per line.\n"
+)
+
+
+def _span_call_name(call: ast.Call) -> Optional[str]:
+    """The literal span name of a `span("...")` / `tracing.span("...")`
+    call, else None (not a span call, or a dynamic name)."""
+    func = call.func
+    is_span = (
+        isinstance(func, ast.Name) and func.id == "span"
+    ) or (isinstance(func, ast.Attribute) and func.attr == "span")
+    if not is_span or not call.args:
+        return None
+    first = call.args[0]
+    if isinstance(first, ast.Constant) and isinstance(first.value, str):
+        return first.value
+    return None
+
+
+def collect_spans(
+    files: Sequence[Tuple[str, str]],
+) -> Dict[str, List[str]]:
+    """span name -> ["rel:line", ...] over (abspath, rel)."""
+    out: Dict[str, List[str]] = {}
+    for path, rel in files:
+        if rel == "ray_tpu_torch/util/tracing.py":
+            continue  # the span() definition itself lives here
+        tree = parse_file(path)
+        if tree is None:
+            continue
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                name = _span_call_name(node)
+                if name is not None:
+                    out.setdefault(name, []).append(f"{rel}:{node.lineno}")
+    return out
+
+
+def check_duplicates(spans: Dict[str, List[str]]) -> List[Violation]:
+    out: List[Violation] = []
+    for name, sites in sorted(spans.items()):
+        if len(sites) < 2:
+            continue
+        rel, line = sites[0].rsplit(":", 1)
+        out.append(
+            Violation(
+                PASS,
+                rel,
+                int(line),
+                f"{PASS}:dup:{name}",
+                f"span {name!r} opened at {len(sites)} sites "
+                f"({', '.join(sites)}) — same-name spans are "
+                "indistinguishable in timeline rollups; rename one or "
+                "hoist the span to a shared helper",
+            )
+        )
+    return out
+
+
+# -- catalog (the metric_names.txt pattern) ---------------------------------
+
+def load_catalog(path: str) -> List[str]:
+    if not os.path.exists(path):
+        return []
+    with open(path, "r", encoding="utf-8") as f:
+        return [
+            line.strip()
+            for line in f
+            if line.strip() and not line.lstrip().startswith("#")
+        ]
+
+
+def write_catalog(spans: Dict[str, List[str]], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(CATALOG_HEADER)
+        for name in sorted(spans):
+            f.write(f"{name}\n")
+
+
+def check_catalog(
+    spans: Dict[str, List[str]], path: str
+) -> List[Violation]:
+    committed = set(load_catalog(path))
+    actual = set(spans)
+    if committed == actual:
+        return []
+    missing = sorted(actual - committed)
+    extra = sorted(committed - actual)
+    parts = []
+    if missing:
+        parts.append(f"uncataloged spans {missing}")
+    if extra:
+        parts.append(f"stale catalog entries {extra}")
+    rel = os.path.basename(path)
+    return [
+        Violation(
+            PASS,
+            rel,
+            0,
+            f"{PASS}:catalog:{rel}",
+            f"{rel}: span-name catalog is stale ({'; '.join(parts)}) — "
+            "regenerate with scripts/ray_tpu_lint.py --fix-allowlist",
+        )
+    ]

@@ -33,7 +33,7 @@ def _forbidden(module: str) -> bool:
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     files = sorted(Path(ray_tpu_torch.__file__).parent.rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "ray_tpu_torch_lint.py"]
     assert len(files) > 10
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {"ray_tpu_torch/models/lm.py", "ray_tpu_torch/models/convert.py",
@@ -62,6 +62,13 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "train/torch/config", "train/torch/torch_trainer",
                  "train/torch/train_loop_utils", "util/multiprocessing", "util/joblib"}
     assert {f"ray_tpu_torch/{m}.py" for m in libraries} <= scanned
+    cluster = {"job_submission", "cluster_utils", "autoscaler/__init__", "autoscaler/autoscaler",
+               "autoscaler/node_provider", "_private/ray_perf", "scripts/__init__", "scripts/cli"}
+    assert {f"ray_tpu_torch/{m}.py" for m in cluster} <= scanned
+    analysis = {"__init__", "allowlist", "blocking", "common", "copy_coverage", "fault_registry",
+                "gcs_mutation", "hot_send", "journal_coverage", "knob_registry", "lock_order",
+                "metric_names", "span_names", "wire_schema"}
+    assert {f"ray_tpu_torch/_private/analysis/{m}.py" for m in analysis} <= scanned
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f) if _forbidden(m)
     ]

@@ -5,8 +5,10 @@ its compute layer: `_private/`, `_native/`, `util/`, the top-level API
 modules), of the data and train libraries, of the serve stack and the AIR
 batch predictor, of the RL library's offline reader and policy server, and
 of the ML libraries and bridges over the runtime (tune, workflows, the
-torch trainer's package, the multiprocessing and joblib shims), so that it
-imports nothing of `ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
+torch trainer's package, the multiprocessing and joblib shims), of the
+cluster layer (jobs, the cluster fixture, the autoscaler, the CLI and the
+runtime's microbenchmarks) and of the static-analysis lint with its data
+files and script, so that it imports nothing of `ray_tpu`. The copy is the source with one rule applied, `\\bray_tpu\\b` ->
 `ray_tpu_torch`, and differs from it only in the ported definitions named
 in PORTED below. These tests recompute what the copy must hold from the
 source tree, and hold every copied module to its source line for line, so
@@ -57,6 +59,20 @@ LIBRARY_MODULES = (
     "ray_tpu.train.torch.train_loop_utils", "ray_tpu.util.multiprocessing",
     "ray_tpu.util.joblib",
 )
+# The cluster layer: job submission, the in-process cluster fixture, the
+# autoscaler, the CLI and the microbenchmarks the CLI runs.
+CLUSTER_MODULES = (
+    "ray_tpu.job_submission", "ray_tpu.cluster_utils", "ray_tpu.autoscaler",
+    "ray_tpu.autoscaler.autoscaler", "ray_tpu.autoscaler.node_provider",
+    "ray_tpu._private.ray_perf", "ray_tpu.scripts", "ray_tpu.scripts.cli",
+)
+# The static-analysis lint: its 14 modules, its data files (the reviewed
+# allowlist and the four generated catalogs, held as text) and its script.
+ANALYSIS_MODULES = tuple(
+    f"ray_tpu._private.analysis{'' if p.stem == '__init__' else '.' + p.stem}"
+    for p in sorted((REPO / SRC / "_private" / "analysis").glob("*.py"))
+)
+ANALYSIS_CATALOGS = ("fault_points.txt", "knob_names.txt", "metric_names.txt", "span_names.txt")
 
 # Where the copy differs from its rewritten source: (port module, the
 # definition as the port names it, its name in the source, why). "*" is a
@@ -121,6 +137,9 @@ PORTED = [
     ("ray_tpu_torch.train.torch.train_loop_utils", "prepare_model", "prepare_model",
      "moves the model to the worker's device, the card the backend bound or the CPU, and "
      "gives DDP that card, where the source's gloo-only path leaves it on the CPU"),
+    ("ray_tpu_torch.scripts.cli", "cmd_bench", "cmd_bench",
+     "runs chip_smoke.py --training (bench.py's head configuration through LMTrainContext "
+     "on the card) where the source runs the JAX package's bench.py"),
 ]
 
 
@@ -220,7 +239,8 @@ def _masked(text: str, spans) -> list:
 
 def _copied_modules():
     return sorted(runtime_closure() | set(TRAINER_MODULES) | set(SERVE_MODULES)
-                  | set(RLLIB_MODULES) | set(LIBRARY_MODULES))
+                  | set(RLLIB_MODULES) | set(LIBRARY_MODULES) | set(CLUSTER_MODULES)
+                  | set(ANALYSIS_MODULES))
 
 
 def test_closure_is_the_runtime_and_every_module_has_its_copy():
@@ -259,14 +279,73 @@ def test_copy_equals_its_source_outside_the_ported_definitions(module):
     assert diff[:3] == [] and len(src) == len(dst), f"{port} differs from {module}"
 
 
+def _definition(path: Path, name: str, rewrite: bool) -> list:
+    text = _rewrite(path.read_text()) if rewrite else path.read_text()
+    start, end = _node_span(ast.parse(text), name)
+    return text.splitlines()[start - 1:end]
+
+
 def test_ported_definitions_are_few_and_exist():
-    assert len(PORTED) <= 21
+    assert len(PORTED) <= 22
     for port, name, _, reason in PORTED:
         assert reason
         if name != "*":
             _node_span(ast.parse(_path(port).read_text()), name)
 
 
+@pytest.mark.parametrize("row", [r for r in PORTED if r[1] != "*" and r[2] is not None],
+                         ids=lambda r: f"{r[0]}:{r[1]}")
+def test_a_ported_definition_differs_from_its_source(row):
+    """A row names a definition the port changed: one equal to its
+    rewritten source would hide a copy that lost its port."""
+    port, name, src_name, _ = row
+    src = _path(port.replace(PORT, SRC, 1))
+    assert _definition(_path(port), name, False) != _definition(src, src_name, True)
+
+
 def test_native_arena_source_is_identical():
     src = (REPO / SRC / "_native" / "shm_arena.cpp").read_bytes()
     assert (REPO / PORT / "_native" / "shm_arena.cpp").read_bytes() == src
+
+
+def test_analysis_modules_are_the_lint_s_fourteen():
+    assert len(ANALYSIS_MODULES) == 14
+    assert {"ray_tpu._private.analysis", "ray_tpu._private.analysis.blocking",
+            "ray_tpu._private.analysis.wire_schema"} <= set(ANALYSIS_MODULES)
+
+
+@pytest.mark.parametrize("name", ANALYSIS_CATALOGS)
+def test_generated_catalog_is_its_source_s_rewritten(name):
+    """The four catalogs, regenerated over the port's tree, name the same
+    fault points, metrics, spans and knobs as the source's over its own."""
+    src = (REPO / SRC / "_private" / "analysis" / name).read_text()
+    assert (REPO / PORT / "_private" / "analysis" / name).read_text() == _rewrite(src)
+
+
+def _allowlist(path: Path) -> dict:
+    lines = [ln for ln in path.read_text().splitlines() if ln.strip() and not ln.startswith("#")]
+    return dict(ln.split(" | ", 1) for ln in lines)
+
+
+def test_allowlist_holds_its_source_s_entries_and_reviews_only_port_files():
+    """Every reviewed site of the source is the copy's, with its
+    justification; an entry the source lacks names a file of the port that
+    has no source (the kernels, the models, card ids), never a copied one."""
+    src = {_rewrite(k): v for k, v in
+           _allowlist(REPO / SRC / "_private" / "analysis" / "allowlist.txt").items()}
+    port = _allowlist(REPO / PORT / "_private" / "analysis" / "allowlist.txt")
+    assert {k: port.get(k) for k in src} == src
+    for key in set(port) - set(src):
+        path = key.split(":")[1]
+        assert path.startswith(PORT + "/") and (REPO / path).is_file(), key
+        assert not (REPO / SRC / path[len(PORT) + 1:]).exists(), key
+        assert port[key] and "TODO" not in port[key], key
+
+
+def test_lint_script_is_its_source_rewritten():
+    """scripts/ray_tpu_torch_lint.py is scripts/ray_tpu_lint.py with the
+    rule applied: its default root and analysis directory are the port's."""
+    src = (REPO / "scripts" / "ray_tpu_lint.py").read_text()
+    port = (REPO / "scripts" / "ray_tpu_torch_lint.py").read_text()
+    assert port == _rewrite(src)
+    assert 'os.path.join(_REPO_ROOT, "ray_tpu_torch", "_private", "analysis")' in port
