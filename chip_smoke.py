@@ -2208,7 +2208,7 @@ class LMDeployment:
             return {"device": torch.cuda.get_device_name(),
                     "launches": launch_counts(),
                     "batches": batches, "peak_bytes": torch.cuda.max_memory_allocated(),
-                    "foreign_modules": foreign_modules(), "build_s": dict(_build.build_seconds),
+                    "foreign_modules": foreign_modules(), "build_s": kernel_builds(),
                     "start_s": self.start_s, "gpu_ids": ray_tpu_torch.get_gpu_ids(),
                     "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
 
@@ -3209,7 +3209,7 @@ def cluster_job_train(steps: str) -> int:
     print(json.dumps({"cluster_job": {
         "device": torch.cuda.get_device_name(0), "pid": os.getpid(), "entered_at": entered,
         "losses": losses, "grad_norms": grad_norms, "launches": launches,
-        "step_done_at": done_at, "build_s": dict(_build.build_seconds),
+        "step_done_at": done_at, "build_s": kernel_builds(),
         "foreign_modules": foreign_modules()}}), flush=True)
     return 0
 
@@ -3245,7 +3245,7 @@ def cluster_batch() -> dict:
             "device": torch.cuda.get_device_name(0), "pid": os.getpid(),
             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "build_s": dict(_build.build_seconds), "foreign_modules": foreign_modules()}
+            "build_s": kernel_builds(), "foreign_modules": foreign_modules()}
 
 
 def cluster_attached_driver(address: str, out: str) -> int:
@@ -3716,13 +3716,21 @@ def _kernel_label(symbol: str) -> str:
     return symbol
 
 
+def kernel_builds() -> dict:
+    """Seconds of nvcc for each library this process loaded (0.0 where it
+    found the library built)."""
+    return {name: rec["compile_s"] for name, rec in _build.loads.items()}
+
+
 def ptxas_report() -> dict:
     """Registers, static shared memory and spills of every kernel, from the
     `-Xptxas -v` output of the builds."""
     report = {}
     for name in LIBRARIES:
         label = None
-        for line in _build.build_logs[name].splitlines():
+        with open(_build.loads[name]["log"]) as f:
+            log = f.read()
+        for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 label = _kernel_label(m.group(1))
@@ -3762,7 +3770,7 @@ def sass_report() -> dict:
         return {}
     report = {}
     for name in LIBRARIES:
-        out = subprocess.run([tool, "-sass", str(_build.library_paths[name])],
+        out = subprocess.run([tool, "-sass", _build.loads[name]["path"]],
                              capture_output=True, text=True, timeout=300, check=True).stdout
         label = None
         for line in out.splitlines():
@@ -3800,9 +3808,9 @@ def build_kernels() -> dict:
         t.join(timeout=600)
     check(not errors, f"build failed: {errors[:1]!r}")
     check(not any(t.is_alive() for t in threads), "a build did not finish")
+    builds = kernel_builds()
     print(f"build: {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s ("
-          + ", ".join(f"nvcc {n} {_build.build_seconds[n]:.1f} s" for n in LIBRARIES) + ")",
-          flush=True)
+          + ", ".join(f"nvcc {n} {builds[n]:.1f} s" for n in LIBRARIES) + ")", flush=True)
     ptxas, sass = ptxas_report(), sass_report()
     for label in sorted(ptxas):
         print(f"ptxas: {label}: {json.dumps(ptxas[label])}"

@@ -38,6 +38,7 @@ from ray_tpu_torch.parallel.sharding import (
     tree_leaves,
     tree_map,
 )
+from ray_tpu_torch.util import tracing
 
 
 def cross_entropy_loss(
@@ -184,6 +185,7 @@ class LMTrainContext:
         device=None,
     ):
         self.config = config
+        self.strategy = strategy if isinstance(strategy, str) else "rules"
         self.rules = resolve_rules(strategy)
         self.optimizer = optimizer or default_optimizer()
         self.mesh = mesh
@@ -235,25 +237,42 @@ class LMTrainContext:
         `state`'s tensors in place and returns (state, metrics) with metrics
         `loss`, `grad_norm` (before clipping) and `step`, global and the
         same on every rank; the metrics stay on the device until read.
-        `batch` is the global batch, as `make_batch` takes it."""
-        batch = self.make_batch(batch)
-        params = state["params"]
-        leaves = tree_leaves(params)
-        if self.mesh is None:
-            logits = forward(params, batch["tokens"], self.config)
-            loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
-            del logits
-            grads = torch.autograd.grad(loss, leaves)
-            grad_norm = _global_norm(list(grads))
-        else:
-            logits = forward(params, batch["tokens"], self.config, rules=self.rules,
-                             mesh=self.mesh)
-            loss = self._rank_loss(logits, batch)
-            del logits
-            grads = torch.autograd.grad(loss, leaves)
-            grad_norm = self._reduce_grads(grads, params)
-            loss = self._sum_over(loss.detach(), self.batch_axes)
-        opt_state = self.optimizer.update(grads, state["opt_state"], leaves, grad_norm)
+        `batch` is the global batch, as `make_batch` takes it.
+
+        With tracing on (`util/tracing.py`) the step is the span
+        `lm::train_step` (attrs `step`, `tokens` of the global batch,
+        `strategy`), its phases the child spans `lm::forward`, `lm::loss`,
+        `lm::backward` (remat's recompute included), `lm::grad_norm` (under
+        a mesh also the gradients' and the loss's sums) and `lm::optimizer`.
+        They time the host's launches of each phase, so a device trace read
+        with them credits each kernel to the phase that launched it."""
+        attrs = None
+        if tracing.is_enabled():
+            attrs = {"step": state["step"], "tokens": torch.as_tensor(batch["tokens"]).numel(),
+                     "strategy": self.strategy}
+        with tracing.span("lm::train_step", attrs=attrs):
+            batch = self.make_batch(batch)
+            params = state["params"]
+            leaves = tree_leaves(params)
+            with tracing.span("lm::forward"):
+                logits = forward(params, batch["tokens"], self.config,
+                                 rules=None if self.mesh is None else self.rules, mesh=self.mesh)
+            with tracing.span("lm::loss"):
+                if self.mesh is None:
+                    loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+                else:
+                    loss = self._rank_loss(logits, batch)
+                del logits
+            with tracing.span("lm::backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            with tracing.span("lm::grad_norm"):
+                if self.mesh is None:
+                    grad_norm = _global_norm(list(grads))
+                else:
+                    grad_norm = self._reduce_grads(grads, params)
+                    loss = self._sum_over(loss.detach(), self.batch_axes)
+            with tracing.span("lm::optimizer"):
+                opt_state = self.optimizer.update(grads, state["opt_state"], leaves, grad_norm)
         step = state["step"] + 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": step}
         return {"params": params, "opt_state": opt_state, "step": step}, metrics

@@ -19,7 +19,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
+
+from ray_tpu_torch.util import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,13 +35,12 @@ NVCC_FLAGS = (
 _lock = threading.Lock()  # guards _locks
 _locks: Dict[str, threading.Lock] = {}  # one per library
 _loaded: Dict[str, ctypes.CDLL] = {}
-# Seconds each library took to compile in this process (0.0 when it was
-# found already built), what the compiler printed (kept beside the library
-# as lib<name>-<hash>.log, and read back when the library is reused), and
-# the file loaded.
-build_seconds: Dict[str, float] = {}
-build_logs: Dict[str, str] = {}
-library_paths: Dict[str, Path] = {}
+# One record per library loaded in this process: the file loaded (`path`),
+# what the compiler printed for it (`log`, kept beside the library and read
+# again when it is reused), whether nvcc built it here (`built`), the
+# compile's seconds (`compile_s`, 0.0 when it was found built) and the whole
+# load's (`load_s`, the compile included).
+loads: Dict[str, Dict[str, Any]] = {}
 
 
 def _nvcc() -> str:
@@ -58,12 +59,15 @@ def _nvcc() -> str:
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so
-    if that file does not exist yet, then load it."""
+    if that file does not exist yet, then load it. The first load in the
+    process is the span `cuda::load_library` (attrs `name`, `built`) and
+    leaves its record in `loads`."""
     with _lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _loaded:
             return _loaded[name]
+        t0 = time.perf_counter()
         paths = [CSRC_DIR / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
@@ -72,25 +76,27 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
         log = target.with_suffix(".log")
-        build_seconds[name] = 0.0
-        build_logs[name] = log.read_text() if log.exists() else ""
-        if not target.exists():
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            build_logs[name] = proc.stdout + proc.stderr
-            log.write_text(build_logs[name])  # before the library, which marks it built
-            os.replace(tmp, target)  # atomic: a reader never sees half a file
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(target))
+        built, compile_s = not target.exists(), 0.0
+        with tracing.span("cuda::load_library", attrs={"name": name, "built": built}):
+            if built:
+                t1 = time.perf_counter()
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(
+                        f"nvcc failed building {name} ({proc.returncode}):\n"
+                        f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                    )
+                # The log before the library, whose file marks it built; the
+                # rename is atomic, so a reader never sees half a library.
+                log.write_text(proc.stdout + proc.stderr)
+                os.replace(tmp, target)
+                compile_s = time.perf_counter() - t1
+            lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
-        library_paths[name] = target
+        loads[name] = {"path": str(target), "log": str(log), "built": built,
+                       "compile_s": compile_s, "load_s": time.perf_counter() - t0}
         return lib
