@@ -4,7 +4,9 @@
 - Parameters are a plain dict tree with the JAX package's names, shapes and
   layouts (no transposes): `wq` is [L, E, H, Dh], `wo` [L, H, Dh, E], the
   layers stacked on a leading [L] axis. `forward` loops over that axis where
-  the JAX package runs `lax.scan`.
+  the JAX package runs `lax.scan`, on the views of one `unbind` of each
+  stacked leaf, so the backward forms each leaf's gradient with one stack of
+  its layers' slices.
 - Rounding points follow the JAX package: the embedding table is cast to the
   compute dtype before the gather, each weight is cast to the compute dtype
   at its use, and the logits come out of a product in the compute dtype and
@@ -577,10 +579,14 @@ def _remat_layer(
     return _checkpoint(_out_mlp, x, attn, layer_params, config, sh)
 
 
-def _index_layer(tree: Dict, i: int) -> Dict:
-    return {
-        k: _index_layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
-    }
+def _unbind_layers(tree: Dict, n: int) -> List[Dict]:
+    """The n layers of a stacked [n, ...] tree, each leaf unbound once along
+    its stacked axis: autograd then forms a leaf's gradient in one
+    `UnbindBackward0` (a stack of the n slices' gradients) where a per-layer
+    `v[i]` makes a zero-filled full-size gradient a layer and adds them."""
+    slices = {k: _unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+              for k, v in tree.items()}
+    return [{k: s[i] for k, s in slices.items()} for i in range(n)]
 
 
 def _embed(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
@@ -660,8 +666,7 @@ def _run_layers(layer_params: Dict, x: torch.Tensor, positions: torch.Tensor,
     """The stacked layers [n, ...] of `layer_params`, in order, each under
     the config's remat segments where `remat`."""
     policy = _remat_policy(config) if config.remat else None
-    for i in range(tree_leaves(layer_params)[0].shape[0]):
-        lp = _index_layer(layer_params, i)
+    for lp in _unbind_layers(layer_params, tree_leaves(layer_params)[0].shape[0]):
         x = _remat_layer(x, lp, positions, config, policy, sh) if remat else _layer(
             x, lp, positions, config, sh)
     return x

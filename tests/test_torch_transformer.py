@@ -18,6 +18,8 @@ from ray_tpu_torch.models import (
     param_axes,
     params_from_numpy,
 )
+from ray_tpu_torch.models import transformer as tf
+from ray_tpu_torch.parallel.sharding import tree_leaves, tree_map
 
 # f32: the frameworks sum the same products in other orders; the largest
 # difference seen is ~6e-6 on logits of magnitude ~5.
@@ -140,3 +142,102 @@ def test_pipelined_misconfigurations_raise_the_jax_errors(rules_kw, cfg_kw):
     with pytest.raises(ValueError) as ours:
         _pipeline_axes(TransformerConfig.tiny(**cfg_kw), rules, sizes)
     assert str(ours.value) == str(theirs.value)
+
+
+# The stacked [L, ...] layer leaves are unbound once a forward
+# (`_unbind_layers`); the reference below slices them per layer with `v[i]`,
+# as the port did before. The two give the same maths and the same rounding,
+# so gradients and logits are held to each other bitwise.
+REMAT_CASES = [(False, None), (True, None), (True, "attn"), (True, "qkv_attn")]
+REMAT_IDS = ["remat_off", "remat_none", "remat_attn", "remat_qkv_attn"]
+
+
+def _indexed_run_layers(layer_params, x, positions, config, remat, sh=None):
+    policy = tf._remat_policy(config) if config.remat else None
+    for i in range(tree_leaves(layer_params)[0].shape[0]):
+        lp = tree_map(lambda v: v[i], layer_params)
+        x = tf._remat_layer(x, lp, positions, config, policy, sh) if remat else tf._layer(
+            x, lp, positions, config, sh)
+    return x
+
+
+def _unbind_case(remat, policy):
+    """A 4-layer tiny decoder computing in bf16 over f32 master leaves that
+    require grad, and a batch of its tokens."""
+    cfg = TransformerConfig.tiny(n_layers=4, dtype=torch.bfloat16, remat=remat,
+                                 remat_policy=policy)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for leaf in tree_leaves(params):
+        assert leaf.dtype == torch.float32
+        leaf.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
+    return cfg, params, tokens
+
+
+def _loss(logits, tokens):
+    return torch.nn.functional.cross_entropy(logits.flatten(0, 1), tokens.flatten())
+
+
+def _node_counts(root, names):
+    counts, seen, todo = dict.fromkeys(names, 0), set(), [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if node.name() in counts:
+            counts[node.name()] += 1
+        todo.extend(n for n, _ in node.next_functions)
+    return counts
+
+
+@pytest.mark.parametrize("remat,policy", REMAT_CASES, ids=REMAT_IDS)
+def test_unbound_layers_grads_equal_per_layer_indexing(remat, policy, monkeypatch):
+    cfg, params, tokens = _unbind_case(remat, policy)
+    ours = torch.autograd.grad(_loss(forward(params, tokens, cfg), tokens), tree_leaves(params))
+    monkeypatch.setattr(tf, "_run_layers", _indexed_run_layers)
+    theirs = torch.autograd.grad(_loss(forward(params, tokens, cfg), tokens), tree_leaves(params))
+    assert len(ours) == len(theirs) == 12
+    for a, b in zip(ours, theirs):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat,policy", REMAT_CASES, ids=REMAT_IDS)
+def test_backward_graph_has_one_unbind_per_stacked_leaf(remat, policy):
+    cfg, params, tokens = _unbind_case(remat, policy)
+    loss = _loss(forward(params, tokens, cfg), tokens)
+    counts = _node_counts(loss.grad_fn, ("UnbindBackward0", "SelectBackward0"))
+    assert counts == {"UnbindBackward0": len(tree_leaves(params["layers"])), "SelectBackward0": 0}
+
+
+def test_pipeline_stage_grads_equal_per_layer_indexing(monkeypatch):
+    """One stage of two over the 4-layer stack ([L/P, ...] = [2, ...] leaves),
+    as `pipeline_apply` and the 1F1B schedule call it, in one process."""
+    cfg, params, tokens = _unbind_case(True, "qkv_attn")
+    stage_params = tree_map(lambda v: v[1].detach().requires_grad_(True),
+                            tf.stack_stages(params["layers"], 2))
+    stage_leaves = tree_leaves(stage_params)
+    h = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(3)).to(
+        cfg.dtype).requires_grad_(True)
+    stage = tf.pipeline_stage(cfg, torch.arange(16))
+
+    def grads():
+        out = stage(stage_params, h)
+        return torch.autograd.grad(out.float().square().mean(), [h, *stage_leaves]), out
+
+    ours, out = grads()
+    counts = _node_counts(out.grad_fn, ("UnbindBackward0", "SelectBackward0"))
+    assert counts == {"UnbindBackward0": len(stage_leaves), "SelectBackward0": 0}
+    monkeypatch.setattr(tf, "_run_layers", _indexed_run_layers)
+    theirs, _ = grads()
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a, b)
+
+
+def test_forward_without_grad_equals_per_layer_indexing(monkeypatch):
+    cfg, params, tokens = _unbind_case(True, "qkv_attn")
+    with torch.no_grad():
+        ours = forward(params, tokens, cfg)
+        monkeypatch.setattr(tf, "_run_layers", _indexed_run_layers)
+        theirs = forward(params, tokens, cfg)
+    assert ours.grad_fn is None and torch.equal(ours, theirs)
