@@ -41,14 +41,14 @@ def train(cell, m, seeds, control_seeds):
             gc.collect()
             torch.cuda.empty_cache()
             ref = kind.reference_readings(cell, m, seed)
-            line["program"] = kind.gaps(ours, ref, m)
+            line["program"] = kind.gaps(ours, ref)
             line["losses"] = {"program": ours["losses"], "reference": ref["losses"]}
         if seed in control_seeds:
             ref = ref or kind.reference_readings(cell, m, seed)
             fp8 = kind.reference_readings(cell, m, seed, quant="fp8")
-            line["control_fp8"] = kind.gaps(fp8, ref, m)
+            line["control_fp8"] = kind.gaps(fp8, ref)
             half = kind.reference_readings(cell, m, seed, rows=cell["traffic"]["batch"] // 2)
-            line["fault_half_batch"] = kind.gaps(half, ref, m)
+            line["fault_half_batch"] = kind.gaps(half, ref)
         line["s"] = time.perf_counter() - t
         print(json.dumps(line), flush=True)
 

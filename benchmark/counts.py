@@ -1,5 +1,7 @@
-"""The yardstick's arithmetic: the card's published peaks, the operations a
-model step needs, and the least time of each attention kernel call.
+"""The yardstick's arithmetic: the card's published peaks, the least time of
+each attention kernel call and the least bytes of the optimizer. A model's
+operations a step are its family's (`benchmark/families/<family>.py`), by
+the same rules.
 
 Operations count what the algorithm needs, never what a program recomputes:
 no remat rerun, no logits computed past the position that is read, no
@@ -27,43 +29,12 @@ def peak(device_name: str) -> Dict[str, float]:
     return PEAKS[device_name]
 
 
-def layer_matmul_params(m: dict) -> int:
-    """Weights of one decoder layer that take part in a matmul: q, k, v and
-    o projections and the three SwiGLU matrices."""
-    d, hd = m["hidden_size"], m["head_dim"]
-    attn = d * hd * (2 * m["num_attention_heads"] + 2 * m["num_key_value_heads"])
-    return attn + 3 * d * m["intermediate_size"]
-
-
-def head_params(m: dict) -> int:
-    return m["hidden_size"] * m["vocab_size"]
-
-
-def matmul_params(m: dict) -> int:
-    """N_nonemb: every weight that a token's forward multiplies, the output
-    head included and the embedding table (a lookup) left out."""
-    return m["num_hidden_layers"] * layer_matmul_params(m) + head_params(m)
-
-
 def visible_pairs(sq: int, sk: int, causal: bool = True) -> int:
     """(query, key) pairs a causal mask leaves, query i seeing keys 0..i."""
     if not causal:
         return sq * sk
     n = min(sq, sk)
     return n * (n + 1) // 2 + (sq - n) * sk
-
-
-def attention_forward_flops(m: dict, seq: int) -> int:
-    """QK^T and PV over the visible pairs of one sequence, every layer."""
-    heads = m["num_attention_heads"]
-    return m["num_hidden_layers"] * 4 * heads * m["head_dim"] * visible_pairs(seq, seq)
-
-
-def train_flops_per_token(m: dict, seq: int) -> float:
-    """Forward and backward of one token of a [*, seq] batch: 6 N_nonemb,
-    and three times the causal attention products (6 L d S / 2 per token on
-    average, exactly as the visible pairs give it)."""
-    return 6 * matmul_params(m) + 3 * attention_forward_flops(m, seq) / seq
 
 
 def _least_s(flops: float, nbytes: float, pk: Dict[str, float]) -> float:
@@ -93,3 +64,10 @@ def flash_bwd_bound_s(b: int, s: int, h: int, hkv: int, d: int, pk: Dict[str, fl
     grads = _least_s(5 * product, reads + q_bytes + 2 * kv_bytes, pk)
     delta = _least_s(2 * b * s * h * d, 2 * q_bytes + b * h * s * 4, pk)
     return grads + delta
+
+
+def adamw_least_bytes(n_params: int) -> int:
+    """Least bytes that the step moves after the backward on f32 parameters,
+    gradients and moments: the global norm reads g once; clip and AdamW read
+    g, p, mu and nu and write p, mu and nu. 8 x 4 bytes a parameter."""
+    return 32 * n_params

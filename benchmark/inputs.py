@@ -1,5 +1,6 @@
-"""Inputs made from the seed: a model's weights and a training cell's token
-batches, on the device, in a fixed order of large draws.
+"""Inputs made from the seed: a model's weights (the leaves its family
+lists, `benchmark/families/`) and a training cell's token batches, on the
+device, in a fixed order of large draws.
 
 The program and the plain reference are both handed what these functions
 make; neither makes its own. The same seed on the same device gives the
@@ -21,55 +22,27 @@ def derive(seed: int, *tags) -> int:
     return int.from_bytes(h[:8], "little") >> 1
 
 
-def _leaf_shapes(m: dict):
-    """(path, shape, scale) of every weight in the port's layout and the
-    port's init scales: normal * d^-0.5, the output projections (2 L d)^-0.5;
-    the norms are ones (scale None)."""
-    d, L, hd = m["hidden_size"], m["num_hidden_layers"], m["head_dim"]
-    h, kv, ff, v = (m["num_attention_heads"], m["num_key_value_heads"],
-                    m["intermediate_size"], m["vocab_size"])
-    s, out = d ** -0.5, (2 * L * d) ** -0.5
-    return [
-        (("embed", "tokens"), (v, d), s),
-        (("layers", "attn", "wq"), (L, d, h, hd), s),
-        (("layers", "attn", "wk"), (L, d, kv, hd), s),
-        (("layers", "attn", "wv"), (L, d, kv, hd), s),
-        (("layers", "attn", "wo"), (L, h, hd, d), out),
-        (("layers", "mlp", "w_gate"), (L, d, ff), s),
-        (("layers", "mlp", "w_up"), (L, d, ff), s),
-        (("layers", "mlp", "w_down"), (L, ff, d), out),
-        (("layers", "ln1"), (L, d), None),
-        (("layers", "ln2"), (L, d), None),
-        (("final_norm",), (d,), None),
-        (("lm_head",), (d, v), s),
-    ]
-
-
-def iter_params(m: dict, seed: int, dtype: torch.dtype,
+def iter_params(family, m: dict, seed: int, dtype: torch.dtype,
                 device) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """The weights one leaf at a time, each drawn in `dtype` in one call
-    from a generator on `device` seeded from `seed`."""
+    """The weights of `family.leaves(m)` one leaf at a time, each drawn in
+    `dtype` in one call from a generator on `device` seeded from `seed`."""
     g = torch.Generator(device=device).manual_seed(derive(seed, "weights"))
-    for path, shape, scale in _leaf_shapes(m):
+    for path, shape, scale in family.leaves(m):
         if scale is None:
             yield path, torch.ones(shape, dtype=dtype, device=device)
         else:
             yield path, torch.randn(shape, generator=g, dtype=dtype, device=device).mul_(scale)
 
 
-def make_params(m: dict, seed: int, dtype: torch.dtype, device) -> Dict:
+def make_params(family, m: dict, seed: int, dtype: torch.dtype, device) -> Dict:
     """The whole weight tree, nested dicts in the port's layout."""
     tree: Dict = {}
-    for path, t in iter_params(m, seed, dtype, device):
+    for path, t in iter_params(family, m, seed, dtype, device):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return tree
-
-
-def leaf_paths(m: dict):
-    return [path for path, _, _ in _leaf_shapes(m)]
 
 
 def get_leaf(tree: Dict, path) -> torch.Tensor:

@@ -1,5 +1,8 @@
 """Training cells: `LMTrainContext.train_step` of the port on batches of
-random token ids from the seed.
+random token ids from the seed. What is particular to the model comes from
+its family (`benchmark/families/<family>.py`, `manifest.family`): the
+program's config, the trained leaves, the reference's forward, the
+operations a token and the attention kernels' shape.
 
 Set-up builds one context and one state from the seed's weights and drives
 them through the cell's checked steps by the window's own call and feed;
@@ -8,6 +11,14 @@ until `seconds` have passed, synchronising after each step as a loop that
 logs its loss does. After the window (and a traced extra pair of steps with
 `trace`), the state is freed and the plain reference (`reference.train`)
 repeats the checked steps from the same weights and batches.
+
+The program's spans (`ray_tpu_torch.util.tracing`) are on in set-up and in
+the traced steps, off in the window. The run's `context` holds them, the
+kernel loader's records (`ops/cuda/_build.loads`) and what the program's
+metrics (`util.metrics.collect()`) did over the traced steps (`counters`),
+for the per-layer readers (`benchmark/spans.py`); `readings` prints each
+span's seconds a traced step, the first step, the load records and the nvcc
+builds.
 
 Python's cyclic collector runs a full (gen-2) collection of the heap, a few
 tenths of a second in this process, about every 40 steps, at a point that
@@ -32,13 +43,15 @@ Read, and compared against a limit where the cell's file sets one:
 
 from __future__ import annotations
 
+import functools
 import gc
+import math
 import statistics
 import time
 
 import torch
 
-from benchmark import counts, inputs, reference
+from benchmark import inputs, manifest, reference, spans
 from benchmark.trace import Capture
 
 # Kernel names of B1, B2 and B3 in the trace, and the autograd node that
@@ -46,21 +59,6 @@ from benchmark.trace import Capture
 MARKERS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
 BWD_SCOPE = "autograd::engine::evaluate_function: _FlashAttentionBackward"
 MOVED = 1e-3  # a leaf whose reference gradient is below this share of the median's
-
-
-def model_config(m: dict, cell: dict):
-    from ray_tpu_torch.models.transformer import TransformerConfig
-
-    spec, prog = m["train"], cell["program"]
-    return TransformerConfig(
-        vocab_size=m["vocab_size"], d_model=m["hidden_size"], n_layers=m["num_hidden_layers"],
-        n_heads=m["num_attention_heads"], n_kv_heads=m["num_key_value_heads"],
-        d_ff=m["intermediate_size"], max_seq_len=cell["traffic"]["seq"],
-        rope_theta=float(m["rope_theta"]), norm_eps=m["rms_norm_eps"],
-        dtype=getattr(torch, spec["dtype"]), param_dtype=getattr(torch, spec["param_dtype"]),
-        tie_embeddings=m["tie_word_embeddings"], remat=prog["remat_policy"] != "off",
-        remat_policy=None if prog["remat_policy"] in ("full", "off") else prog["remat_policy"],
-    )
 
 
 class GcPauses:
@@ -98,6 +96,11 @@ def _gap(ours: dict, ref: dict, paths) -> float:
     return max(abs(ours[p] - ref[p]) / max(ref[p], floor) for p in paths)
 
 
+def fixed(family, m: dict, seed: int, device) -> dict:
+    """The family's tensors that are not trained (none where it has none)."""
+    return family.fixed(m, seed, device) if hasattr(family, "fixed") else {}
+
+
 def build(cell: dict, m: dict, seed: int, device: str = "cuda"):
     """The context and state from the seed's weights, driven through the
     cell's checked steps by the window's own call and feed. Returns the
@@ -108,19 +111,21 @@ def build(cell: dict, m: dict, seed: int, device: str = "cuda"):
     from ray_tpu_torch.models.lm import LMTrainContext, default_optimizer
     from ray_tpu_torch.parallel.sharding import tree_leaves
 
+    family = manifest.family(m)
     tr, opt = cell["traffic"], m["train"]["optimizer"]
     b, s = tr["batch"], tr["seq"]
-    ctx = LMTrainContext(model_config(m, cell), strategy=cell["program"]["strategy"],
+    ctx = LMTrainContext(family.program_config(m, cell, fixed(family, m, seed, device)),
+                         strategy=cell["program"]["strategy"],
                          optimizer=default_optimizer(opt["learning_rate"], opt["weight_decay"]),
                          device=device)
     dtype = getattr(torch, m["train"]["param_dtype"])
-    params = inputs.make_params(m, seed, dtype, device)
+    params = inputs.make_params(family, m, seed, dtype, device)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     state = {"params": params, "opt_state": ctx.optimizer.init(leaves), "step": 0}
     slot = {id(t): i for i, t in enumerate(leaves)}
-    paths = inputs.leaf_paths(m)
+    paths = [path for path, _, _ in family.leaves(m)]
 
     def leaf(path):
         return inputs.get_leaf(params, path)
@@ -136,7 +141,7 @@ def build(cell: dict, m: dict, seed: int, device: str = "cuda"):
     t = time.perf_counter()
     with torch.no_grad():
         change = {p: float(torch.linalg.vector_norm(leaf(p).detach().float() - p0.float()))
-                  for p, p0 in inputs.iter_params(m, seed, dtype, device)}
+                  for p, p0 in inputs.iter_params(family, m, seed, dtype, device)}
     return ctx, state, {"losses": losses, "first_grad": first_grad, "change": change,
                         "check_s": time.perf_counter() - t}
 
@@ -144,17 +149,19 @@ def build(cell: dict, m: dict, seed: int, device: str = "cuda"):
 def reference_readings(cell: dict, m: dict, seed: int, device: str = "cuda", **kw) -> dict:
     """The plain reference's readings of the checked steps from the same
     weights and batches (`kw`: quant, rows)."""
-    tr = cell["traffic"]
+    tr, family = cell["traffic"], manifest.family(m)
     reference.exact_float32()
-    p0 = inputs.make_params(m, seed, torch.float32, device)
+    p0 = inputs.make_params(family, m, seed, torch.float32, device)
     batches = [inputs.train_batch(m, seed, i, tr["batch"], tr["seq"], device)
                for i in range(cell["check"]["steps"])]
-    return reference.train(p0, batches, m, m["train"]["optimizer"], **kw)
+    forward = functools.partial(family.forward, fixed=fixed(family, m, seed, device))
+    return reference.train(p0, batches, m, m["train"]["optimizer"], forward, **kw)
 
 
-def gaps(ours: dict, ref: dict, m: dict) -> dict:
-    """The three compared numbers (the module's docstring)."""
-    paths = inputs.leaf_paths(m)
+def gaps(ours: dict, ref: dict) -> dict:
+    """The three compared numbers (the module's docstring), over the
+    trained leaves."""
+    paths = list(ref["first_grad"])
     floor = MOVED * statistics.median(ref["first_grad"][p] for p in paths)
     moved = [p for p in paths if ref["first_grad"][p] >= floor]
     return {
@@ -166,10 +173,21 @@ def gaps(ours: dict, ref: dict, m: dict) -> dict:
 
 def run(cell: dict, m: dict, seed: int, seconds: float, trace: bool, t0: float,
         device: str = "cuda") -> dict:
+    from ray_tpu_torch.ops.cuda import _build
+    from ray_tpu_torch.util import metrics as program_metrics
+    from ray_tpu_torch.util import tracing
+
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    family = manifest.family(m)
     b, s = cell["traffic"]["batch"], cell["traffic"]["seq"]
-    ctx, state, ours = build(cell, m, seed, device)
+    tracing.drain_spans()
+    tracing.enable_tracing()
+    try:
+        ctx, state, ours = build(cell, m, seed, device)
+    finally:
+        tracing.disable_tracing()
+    setup_spans = tracing.drain_spans()
     sync()
     gc.collect()
     # The change's reading (a second draw of the weights) is the check's,
@@ -193,17 +211,25 @@ def run(cell: dict, m: dict, seed: int, seconds: float, trace: bool, t0: float,
         window_s = ends[-1] - start
     steps_s = [e - s0 for s0, e in zip([start] + ends, ends)]
     window_peak = torch.cuda.max_memory_allocated() if on_card else 0
-    summary, traced_gc = None, GcPauses()
-    if trace and on_card:
+    summary, traced_spans, counters, traced_gc = None, [], {}, GcPauses()
+    if trace:
         gc.collect()
-        cap = Capture(MARKERS, (BWD_SCOPE,))
-        with traced_gc:
-            cap.start()
-            for _ in range(cell["trace"]["steps"]):
-                state, _ = ctx.train_step(state, inputs.train_batch(m, seed, step, b, s, device))
-                step += 1
-            sync()
-        summary = cap.stop()
+        cap = Capture(MARKERS, (BWD_SCOPE,), on_card)
+        before = program_metrics.collect()
+        tracing.enable_tracing()
+        try:
+            with traced_gc:
+                cap.start()
+                for _ in range(cell["trace"]["steps"]):
+                    state, _ = ctx.train_step(state,
+                                              inputs.train_batch(m, seed, step, b, s, device))
+                    step += 1
+                sync()
+        finally:
+            tracing.disable_tracing()
+        traced_spans = tracing.drain_spans()
+        summary = cap.stop(traced_spans)
+        counters = spans.counter_deltas(before, program_metrics.collect())
     finite = bool(torch.isfinite(torch.stack(window_losses)).all())
     name = torch.cuda.get_device_name() if on_card else "cpu"
     memory_peak = max(setup_peak, window_peak, torch.cuda.max_memory_allocated()) if on_card else 0
@@ -216,10 +242,21 @@ def run(cell: dict, m: dict, seed: int, seconds: float, trace: bool, t0: float,
     ref = reference_readings(cell, m, seed, device)
     reference_s = time.perf_counter() - t_ref
     limits = cell["check"]["limits"]
-    found = gaps(ours, ref, m)
+    found = gaps(ours, ref)
     checks = {k: (v, limits[k]) for k, v in found.items() if k in limits}
     checks["window_loss_not_finite"] = (0 if finite else 1, 0)
     tokens = done * b * s
+    loads = {k: dict(v) for k, v in _build.loads.items()}
+    context = {
+        "kind": "train", "device": name, "window_s": window_s,
+        "flops": family.train_flops_per_token(m, s) * tokens,
+        "window_peak_bytes": window_peak, "trace": summary,
+        "shape": family.attention_shape(m, cell["traffic"]),
+        "n_params": sum(math.prod(shape) for _, shape, _ in family.leaves(m)),
+        "traced_steps": cell["trace"]["steps"],
+        "spans": {"setup": setup_spans, "traced": traced_spans},
+        "loads": loads, "counters": counters,
+    }
     return {
         "correct": True,  # the checks decide
         "attempted": done,
@@ -229,17 +266,14 @@ def run(cell: dict, m: dict, seed: int, seconds: float, trace: bool, t0: float,
         "device": {"platform": "gpu" if on_card else "cpu", "kind": name, "count": 1,
                    "memory_peak_bytes": memory_peak},
         "trace": summary,
+        "context": context,
         "readings": {"gaps": found, "ours": ours, "reference": ref,
                      "reference_s": reference_s, "window_steps": done,
                      "step_s": {"min": min(steps_s), "median": statistics.median(steps_s),
                                 "max": max(steps_s)},
-                     "gc": {"window": window_gc.summary(), "traced": traced_gc.summary()}},
-        "context": {
-            "kind": "train", "device": name, "window_s": window_s,
-            "flops": counts.train_flops_per_token(m, s) * tokens,
-            "window_peak_bytes": window_peak, "trace": summary,
-            "shape": {"b": b, "s": s, "h": m["num_attention_heads"],
-                      "hkv": m["num_key_value_heads"], "d": m["head_dim"],
-                      "layers": m["num_hidden_layers"]},
-        },
+                     "gc": {"window": window_gc.summary(), "traced": traced_gc.summary()},
+                     "spans_a_traced_step": spans.per_step(context) if summary else None,
+                     "first_step": spans.first_step(setup_spans, loads),
+                     "loads": loads, "nvcc_builds": sum(1 for r in loads.values() if r["built"]),
+                     "counters": counters},
     }

@@ -1,9 +1,10 @@
 """Everything a run finds by name: the manifest (BENCHMARK.json at the root
 of the checkout), a cell's file `benchmark/workloads/<cell>.json`, its
-configuration `benchmark/configs/<config>.json`, its kind's driver
+configuration `benchmark/configs/<config>.json`, the configuration's model
+family `benchmark/families/<family>.py`, its kind's driver
 `benchmark/kinds/<kind>.py` and each per-layer metric's reader
-`benchmark/metrics/<metric>.py`. Adding a cell, a configuration or a metric
-adds files and entries; no file here changes."""
+`benchmark/metrics/<metric>.py`. Adding a cell, a configuration, a family or
+a metric adds files and entries; no file here changes."""
 
 from __future__ import annotations
 
@@ -46,6 +47,13 @@ def _load(path: Path, module_name: str):
 
 def kind(name: str):
     return _load(BENCH_DIR / "kinds" / f"{name}.py", f"benchmark.kinds.{name}")
+
+
+def family(m: Dict):
+    """The module of configuration `m`'s model family (`"family"`, `"dense"`
+    where the file names none)."""
+    name = m.get("family", "dense")
+    return _load(BENCH_DIR / "families" / f"{name}.py", f"benchmark.families.{name}")
 
 
 def reader(metric: str):

@@ -1,25 +1,22 @@
-"""The plain reference: the decoder's forward, loss, gradients, clipping and
-AdamW in float32 PyTorch with TF32 off, written from the published model
+"""The plain reference: a model's loss, gradients, clipping and AdamW in
+float32 PyTorch with TF32 off, written from the published model
 description and the optimizer's definition, with no kernel, cache, batching
-or anything of the program under test.
+or anything of the program under test. Each model family's forward
+(`benchmark/families/<family>.py`) is written from the pieces here.
 
 It takes the weights and tokens that `benchmark/inputs.py` makes from the
 seed, and the configuration's numbers, and nothing the program has made.
 `quant="fp8"` computes every matmul from operands rounded to float8 e4m3
 (per-tensor scale): the control, one precision below the bf16 compute the
 configurations state, that the checks must fail.
-
-Layout as the program's weights: wq [L, d, H, hd], wo [L, H, hd, d], RoPE on
-interleaved pairs, a kv head shared by H / KV consecutive q heads.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 FP8_MAX = 448.0  # largest finite float8_e4m3fn
 
@@ -71,45 +68,9 @@ def attention(q, k, v, quant: Optional[str]) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", rounded(p, quant), rounded(v, quant))
 
 
-def _mm(eq: str, x, w, quant):
+def mm(eq: str, x, w, quant: Optional[str]) -> torch.Tensor:
+    """The product `eq` of an activation and a weight, each rounded."""
     return torch.einsum(eq, rounded(x, quant), rounded(w, quant))
-
-
-def layer(x: torch.Tensor, lp: Dict, m: dict, quant: Optional[str]) -> torch.Tensor:
-    eps, theta = m["rms_norm_eps"], float(m["rope_theta"])
-    h = rms_norm(x, lp["ln1"], eps)
-    q = rope(_mm("bse,ehd->bshd", h, lp["wq"], quant), theta)
-    k = rope(_mm("bse,ehd->bshd", h, lp["wk"], quant), theta)
-    v = _mm("bse,ehd->bshd", h, lp["wv"], quant)
-    x = x + _mm("bshd,hde->bse", attention(q, k, v, quant), lp["wo"], quant)
-    h = rms_norm(x, lp["ln2"], eps)
-    ff = torch.nn.functional.silu(_mm("bse,ef->bsf", h, lp["w_gate"], quant))
-    ff = ff * _mm("bse,ef->bsf", h, lp["w_up"], quant)
-    return x + _mm("bsf,fe->bse", ff, lp["w_down"], quant)
-
-
-def _layer_params(params: Dict, i: int) -> Dict:
-    """Layer i's weights in float32 (a bf16 tree is widened one layer at a
-    time, so that only one layer's float32 copy lives)."""
-    a, f = params["layers"]["attn"], params["layers"]["mlp"]
-    out = {k: a[k][i] for k in ("wq", "wk", "wv", "wo")}
-    out.update({k: f[k][i] for k in ("w_gate", "w_up", "w_down")})
-    out.update(ln1=params["layers"]["ln1"][i], ln2=params["layers"]["ln2"][i])
-    return {k: t.float() for k, t in out.items()}
-
-
-def forward(params: Dict, tokens: torch.Tensor, m: dict, *, quant: Optional[str] = None,
-            remat: bool = False) -> torch.Tensor:
-    """Logits [B, S, V] of token ids [B, S]."""
-    x = params["embed"]["tokens"][tokens].float()
-    for i in range(m["num_hidden_layers"]):
-        lp = _layer_params(params, i)
-        if remat:
-            x = checkpoint(layer, x, lp, m, quant, use_reentrant=False)
-        else:
-            x = layer(x, lp, m, quant)
-    x = rms_norm(x, params["final_norm"].float(), m["rms_norm_eps"])
-    return _mm("...e,ev->...v", x, params["lm_head"].float(), quant)
 
 
 def _flatten(tree: Dict, prefix=()) -> Dict[tuple, torch.Tensor]:
@@ -136,10 +97,11 @@ def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(t.float()))
 
 
-def train(params0: Dict, batches: List[Dict], m: dict, opt: dict, *,
+def train(params0: Dict, batches: List[Dict], m: dict, opt: dict, forward: Callable, *,
           quant: Optional[str] = None, rows: Optional[int] = None) -> Dict:
     """The training steps on `batches` from the float32 weights `params0`
-    (left as they are): per step the mean next-token cross entropy over the
+    (left as they are), `forward(tree, tokens, m, quant=, remat=)` giving
+    the logits: per step the mean next-token cross entropy over the
     batch's tokens, its gradient (one row at a time, each layer recomputed
     in the backward, accumulated), clip_by_global_norm, then AdamW in
     optax's order (scale_by_adam, add_decayed_weights, -lr).

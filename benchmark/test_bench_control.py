@@ -28,8 +28,8 @@ def test_training_control_fails_and_program_passes(seed):
     _, _, ours = kind.build(cell, m, seed, "cpu")
     ref = kind.reference_readings(cell, m, seed, "cpu")
     fp8 = kind.reference_readings(cell, m, seed, "cpu", quant="fp8")
-    assert not _fails(kind.gaps(ours, ref, m), limits)
-    assert _fails(kind.gaps(fp8, ref, m), limits)
+    assert not _fails(kind.gaps(ours, ref), limits)
+    assert _fails(kind.gaps(fp8, ref), limits)
 
 
 @pytest.mark.gpu

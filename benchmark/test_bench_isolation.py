@@ -14,8 +14,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "ray_tpu"}
 SOURCES = sorted(BENCH.rglob("*.py"))
 
 
-def imported(path: Path):
-    tree = ast.parse(path.read_text())
+def imported(path: Path, tree=None):
+    """Top-level names of the modules `path` (or its parsed `tree`) imports."""
+    tree = tree if tree is not None else ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name.split(".")[0] for a in node.names)
@@ -62,3 +63,15 @@ def test_a_run_that_loaded_jax_prints_no_result(monkeypatch):
 
     monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
     assert run.forbidden_modules() == ["jax"]
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "families").glob("[!_]*.py")),
+                         ids=lambda p: p.name)
+def test_a_family_s_reference_imports_nothing_of_the_port(path):
+    """Only `program_config` may import the port: a family's reference
+    forward, leaves and counts are plain torch and the benchmark's own."""
+    tree = ast.parse(path.read_text())
+    outside = [n for n in tree.body
+               if not (isinstance(n, ast.FunctionDef) and n.name == "program_config")]
+    found = set(imported(path, ast.Module(body=outside, type_ignores=[])))
+    assert found <= {"__future__", "math", "typing", "torch", "benchmark"}, found

@@ -1,24 +1,15 @@
 """Tiny stand-ins for the benchmark's configurations and cells, for the
-tests on the CPU: every width cut, the layout and the code paths kept."""
+tests on the CPU: every width cut to its family's `TINY` sizes, the layout
+and the code paths kept."""
 
 import copy
 
 from benchmark import manifest
 
 
-# Per configuration: wide enough that bf16's error in the compared numbers
-# stays as far below the cells' limits, and fp8's as far above, as at full
-# size; small enough for the CPU.
-SIZES = {
-    "internlm2-1.8b": dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
-                           num_key_value_heads=2, head_dim=32, intermediate_size=512,
-                           vocab_size=2048),
-}
-
-
 def model(name: str = "internlm2-1.8b") -> dict:
     m = manifest.config(name)
-    m.update(SIZES[name])
+    m.update(manifest.family(m).TINY)
     return m
 
 

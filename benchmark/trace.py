@@ -12,6 +12,8 @@ and the result's `breakdown` read.
   with one of `scopes` (the batch that ran it, the autograd node).
 - scoped_s: device seconds of all kernels launched inside a host op whose
   name starts with each of `scopes`.
+- by_span, given the program's spans of the window: per span name, host,
+  device and idle seconds on the trace's clock (`spans.SpanTrace.by_span`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import os
 import tempfile
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -32,14 +34,20 @@ TOP = 10
 
 class Capture:
     """torch.profiler over [start(), stop()]: CPU ops of every thread (where
-    this torch can) and the device's activity."""
+    this torch can) and, on the card, the device's activity."""
 
-    def __init__(self, markers: Sequence[str] = (), scopes: Sequence[str] = ()):
-        self.markers, self.scopes = tuple(markers), tuple(scopes)
+    def __init__(self, markers: Sequence[str] = (), scopes: Sequence[str] = (),
+                 on_card: bool = True):
+        self.markers, self.scopes, self.on_card = tuple(markers), tuple(scopes), on_card
         self.prof = None
 
-    def start(self) -> None:
+    def _sync(self) -> None:
         import torch
+
+        if self.on_card:
+            torch.cuda.synchronize()
+
+    def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
 
         kw = {}
@@ -49,15 +57,17 @@ class Capture:
             kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
         except (ImportError, TypeError):
             pass  # a torch without it records the starting thread's host ops only
-        torch.cuda.synchronize()
-        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw)
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.on_card else [])
+        self._sync()
+        self.prof = profile(activities=acts, **kw)
         self.prof.start()
         self.t0 = time.perf_counter()
 
-    def stop(self) -> Dict:
-        import torch
-
-        torch.cuda.synchronize()
+    def finish(self) -> Tuple[List[dict], float, float]:
+        """Stop: the Chrome trace's events, its clock base in microseconds
+        (`baseTimeNanoseconds` / 1e3: an event's `ts` plus the base is the
+        epoch time that `time.time()` gives) and the window's seconds."""
+        self._sync()
         window_s = time.perf_counter() - self.t0
         self.prof.stop()
         fd, path = tempfile.mkstemp(suffix=".json")
@@ -65,13 +75,17 @@ class Capture:
         try:
             self.prof.export_chrome_trace(path)
             with open(path) as f:
-                events = json.load(f)
+                trace = json.load(f)
         finally:
             os.unlink(path)
         self.prof = None
-        if isinstance(events, dict):
-            events = events.get("traceEvents", [])
-        return summarize(events, window_s, self.markers, self.scopes)
+        return trace["traceEvents"], trace["baseTimeNanoseconds"] / 1e3, window_s
+
+    def stop(self, spans: Optional[List[dict]] = None) -> Dict:
+        """Stop and reduce (`summarize`), with the program's `spans` of the
+        window where given."""
+        events, base_us, window_s = self.finish()
+        return summarize(events, window_s, self.markers, self.scopes, spans, base_us)
 
 
 def _union(intervals: List[tuple]) -> List[list]:
@@ -106,7 +120,8 @@ class _HostOps:
 
 
 def summarize(events: List[dict], window_s: float, markers: Sequence[str] = (),
-              scopes: Sequence[str] = ()) -> Dict:
+              scopes: Sequence[str] = (), spans: Optional[List[dict]] = None,
+              base_us: float = 0.0) -> Dict:
     device, launches, host = [], {}, defaultdict(list)
     for e in events:
         cat = e.get("cat")
@@ -152,7 +167,7 @@ def summarize(events: List[dict], window_s: float, markers: Sequence[str] = (),
                 marked.append({"marker": mk, "s": dur / 1e6, "scope": scope})
     top = lambda d: [[k[:160], v / 1e6] for k, v in  # noqa: E731
                      sorted(d.items(), key=lambda kv: -kv[1])[:TOP]]
-    return {
+    out = {
         "window_s": window_s,
         "busy_s": busy_us / 1e6,
         "kernels": len(device),
@@ -161,3 +176,8 @@ def summarize(events: List[dict], window_s: float, markers: Sequence[str] = (),
         "marked": marked,
         "scoped_s": dict(scoped),
     }
+    if spans is not None:
+        from benchmark.spans import SpanTrace
+
+        out["by_span"] = SpanTrace(events, spans, base_us).by_span()
+    return out
