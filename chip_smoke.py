@@ -4,17 +4,19 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --forward-times   # only B1's times (main_forward_times)
     python3 chip_smoke.py --backward-times  # only B2's and B3's (main_backward_times)
+    python3 chip_smoke.py --adamw-times     # only the clip + AdamW kernel's (main_adamw_times)
 
 Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
 
 1. device and build: needs a CUDA card; prints the card's name and power
    limit (nvidia-smi) and builds the flash-attention forward and backward
-   kernels from ray_tpu_torch/csrc with nvcc, one nvcc per source, started
-   together; prints each kernel's registers, shared memory and spills
-   (ptxas) and, where the toolkit has cuobjdump, its HGMMA (wgmma) and HMMA
-   (mma.sync) instruction counts, and fails if a bf16 kernel (all three
-   run on wgmma) spills or holds an mma.sync;
+   kernels and the clip + AdamW kernel (A1) from ray_tpu_torch/csrc with
+   nvcc, one nvcc per source, started together; prints each kernel's
+   registers, shared memory and spills (ptxas) and, where the toolkit has
+   cuobjdump, its HGMMA (wgmma) and HMMA (mma.sync) instruction counts, and
+   fails if A1 or a bf16 attention kernel spills, or the latter (all three
+   run on wgmma) holds an mma.sync;
 2. the forward kernels against their plain PyTorch version on the card
    (FWD_CASES: head_dim 128 and 64, S = 1 to 16384, batch 1 to 16, 4 to
    32 heads, GQA, causal and not, bf16 and f32, and every shape the later
@@ -23,7 +25,11 @@ printing the final line:
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls): CUDA events around
    eager calls, as a caller waits, and CUDA-graph replays, the card alone,
-   with the host's time to issue a call (forward_times);
+   with the host's time to issue a call (forward_times); then A1 at
+   InternLM2-1.8B's 12 leaves in f32 and bf16 (phase_adamw): two updates,
+   under and over the clip, each output element against the plain chain in
+   f64 on the same inputs (ADAMW_TERM_SHARE), and the times of the kernel,
+   the plain chain and the library's fused AdamW;
 3. the serving path at the full width of TransformerConfig.llama_1b (random
    weights from a seeded generator): 16 requests of 1024 tokens from 16
    threads through `@serve.batch(max_batch_size=8)`, the kernel's launch
@@ -188,6 +194,10 @@ printing the final line:
    None, batch 8 x 2048) as in (b): 48/24/24 launches. Each driver is
    bounded by DRIVER_TIMEOUT.
 
+Every training step whose launches are counted (phases 5, 6, 8, 9, 12,
+13 and 14) also holds A1 to one launch a leaf; the kernels line gives A1's
+count a step by path (ADAMW_LAUNCHES).
+
 Prints JSON lines of the serving and training numbers, the profiles, the
 pipeline and experts, the RL learners, the checkpoint, the trainer, the
 serve stack, the RL algorithms, tune, the cluster layer, the drivers and
@@ -229,8 +239,8 @@ from ray_tpu_torch.models import (
     init_params,
     moe_ffn,
 )
-from ray_tpu_torch.models import moe, transformer
-from ray_tpu_torch.ops.cuda import _build
+from ray_tpu_torch.models import lm, moe, transformer
+from ray_tpu_torch.ops.cuda import _build, adamw
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_schedule
 from ray_tpu_torch.parallel import (
@@ -564,6 +574,163 @@ def main_backward_times() -> int:
     print(f"card: {card_line()}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     print(json.dumps({"backward_times": backward_times(*training_shape_inputs(g))}), flush=True)
+    return 0
+
+
+# InternLM2-1.8B's widths (huggingface.co/internlm/internlm2-1_8b), the
+# model of the benchmark's train-4k cell: its 12 leaves are what A1 is
+# checked and timed at.
+INTERNLM2_1_8B = TransformerConfig(vocab_size=92544, d_model=2048, n_layers=24, n_heads=16,
+                                   n_kv_heads=8, d_ff=8192)
+# default_optimizer()'s constants.
+ADAMW_HYPER = dict(learning_rate=3e-4, weight_decay=0.1, b1=0.9, b2=0.95, eps=1e-8,
+                   max_norm=1.0)
+# A1 against the plain chain (`_clip_adamw_plain`) run in f64 on the same
+# inputs, element by element. An f32 output lies within 2^-20 of the
+# magnitude of the terms of the sum that forms it: the kernel rounds a few
+# times in f32, each time by at most 2^-24 of what it rounds, and a sum may
+# cancel down to those errors. A bf16 output may lie one bf16 ulp of the
+# f64 value further off: the kernel rounds each stored value once, by half
+# an ulp, and its f32 error may carry it over a rounding boundary. A value
+# left unwritten, a term dropped or a constant misplaced is off by far more;
+# the check asserts that the inputs themselves lie outside the tolerance.
+ADAMW_TERM_SHARE = 2.0 ** -20
+# Elements a chunk of the f64 reference holds (eight f64 temporaries of
+# 0.27 GB at a time beside the leaves).
+ADAMW_CHUNK = 1 << 25
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of `x`: 2^(e-8) where |x| lies in
+    [2^(e-1), 2^e), the subnormal step 2^-133 at least."""
+    _, e = torch.frexp(x)
+    ulp = torch.ldexp(torch.ones_like(x), (e - 8).clamp(min=-133))
+    return torch.where(x == 0, 2.0 ** -133, ulp)
+
+
+def adamw_gaps(before: list, grads: list, after: list, norm, count: int) -> dict:
+    """A1's update of each leaf (`after`, its p, mu and nu as the kernel
+    wrote them) against the plain chain run in f64 on the same inputs
+    (`before`, its p, mu and nu before; `grads`), with the norm `norm` and
+    step count `count`: each output's largest error as a share of its
+    element's tolerance (`worst`, at most 1 to pass), and the same share of
+    the value it held before (`unwritten`, above 1 where the check sees a
+    value the kernel would leave unwritten). The tolerance is
+    ADAMW_TERM_SHARE of the magnitude of the terms: mu's |b1 mu| + |(1 - b1)
+    g'|, nu's own value, p's |p| (1 + lr wd) + lr (mu's magnitude) / (bc1
+    (sqrt(nu_hat) + eps)), which also bounds what mu's error moves p by;
+    one bf16 ulp of the f64 value more for bf16 leaves."""
+    h = ADAMW_HYPER
+    lr, wd, b1, b2, eps = (h[k] for k in ("learning_rate", "weight_decay", "b1", "b2", "eps"))
+    worst, unwritten = dict.fromkeys(("p", "mu", "nu"), 0.0), dict.fromkeys(("p", "mu", "nu"), 0.0)
+    for (p0, m0, v0), g, outs in zip(before, grads, after):
+        flat = [t.reshape(-1) for t in (p0, g, m0, v0, *outs)]
+        for lo in range(0, p0.numel(), ADAMW_CHUNK):
+            p0c, gc, m0c, v0c, pk, mk, vk = (t[lo:lo + ADAMW_CHUNK] for t in flat)
+            p, g64, m, v = (t.double() for t in (p0c, gc, m0c, v0c))
+            lm._clip_adamw_plain([g64], [m], [v], [p], norm, count, **h)
+            mu_mag = b1 * m0c.double().abs() + (1 - b1) * g64.abs()
+            p_mag = (p0c.double().abs() * (1 + lr * wd)
+                     + lr * mu_mag / ((1 - b1 ** count) * ((v / (1 - b2 ** count)).sqrt() + eps)))
+            for name, ref, mag, ours, old in (("p", p, p_mag, pk, p0c), ("mu", m, mu_mag, mk, m0c),
+                                              ("nu", v, v, vk, v0c)):
+                # At least the least f32 step, where every term is 0 (a
+                # gradient drawn as exactly 0 from zero moments).
+                tol = ADAMW_TERM_SHARE * mag + (bf16_ulp(ref) if ours.dtype == torch.bfloat16
+                                                else 2.0 ** -149)
+                share = ((ours.double() - ref).abs() / tol).nan_to_num(nan=float("inf"))
+                worst[name] = max(worst[name], share.max().item())
+                unwritten[name] = max(unwritten[name],
+                                      ((old.double() - ref).abs() / tol).max().item())
+    return {"worst": worst, "unwritten": unwritten}
+
+
+def adamw_times(dtype) -> dict:
+    """A1 at InternLM2-1.8B's 12 leaves in `dtype`, after the global norm.
+    First two updates of all 12 leaves by `clip_adamw`, each checked by
+    adamw_gaps: the first with the gradients' own norm (under the clip)
+    from zero moments, the second with fresh gradients and ten times their
+    norm (over it).
+    Then, on the same card tensors, CUDA events around eager updates, as a
+    step waits for them: the kernel (`ms`, one launch a leaf), the plain
+    `_foreach` chain (`plain_ms`), the library's fused AdamW (`library_ms`:
+    torch._fused_adamw_ with the clip as its grad_scale, a yardstick the
+    port never calls, which also writes the unscaled gradients back, 32 B a
+    parameter in f32) and the global norm (`norm_ms`); the kernel's bound
+    (28 B a parameter in f32, 14 in bf16, at the card's peak bytes/s) and
+    the bytes/s it reached. The timed updates take the gradients' own norm,
+    under the clip, so the chain's in-place clip and the library's
+    unscaling leave the gradients as they are."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = [p.detach().to(dtype) for p in
+              tree_leaves(init_params(INTERNLM2_1_8B, g, device="cuda"))]
+    grads = [(torch.randn(p.shape, generator=g, device="cuda") * 1e-5).to(dtype)
+             for p in params]
+    mu, nu = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+    checks, seen = {}, dict.fromkeys(("p", "mu", "nu"), 0.0)
+    for count in (1, 2):
+        if count == 2:  # fresh gradients, as the next step's
+            for t in grads:
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda") * 1e-5)
+        norm = lm._global_norm(grads)
+        n = norm if count == 1 else norm * 10
+        before = [(p.clone(), m.clone(), v.clone()) for p, m, v in zip(params, mu, nu)]
+        zero_launch_counts()
+        adamw.clip_adamw(grads, mu, nu, params, n, count, **ADAMW_HYPER)
+        check(adamw.clip_adamw.launches == len(params),
+              f"A1 {dtype}: {adamw.clip_adamw.launches} launches for {len(params)} leaves")
+        gaps = adamw_gaps(before, grads, list(zip(params, mu, nu)), n, count)
+        del before
+        torch.cuda.empty_cache()
+        checks[f"step_{count}_norm_{float(n):.4f}"] = gaps
+        print(f"A1 {dtype} update {count} (norm {float(n):.4f}) against the plain chain in f64: "
+              f"{json.dumps(gaps)}", flush=True)
+        check(all(v <= 1 for v in gaps["worst"].values()),
+              f"A1 {dtype} update {count}: an output outside its tolerance: {gaps['worst']}")
+        seen = {k: max(v, gaps["unwritten"][k]) for k, v in seen.items()}
+    # A bf16 moment may move by less than an ulp in one update (nu by 5% at
+    # most), so the outputs left unwritten must show in one of the two.
+    check(all(v > 1 for v in seen.values()),
+          f"A1 {dtype}: the check cannot see an unwritten value: {seen}")
+    nbytes = 7 * params[0].element_size() * sum(p.numel() for p in params)
+    ms = time_ms(lambda: adamw.clip_adamw(grads, mu, nu, params, norm, 3, **ADAMW_HYPER),
+                 iters=10)
+    least_ms, _ = bound(0.0, nbytes, dtype)
+    steps = [torch.full((), 3.0, device="cuda") for _ in params]
+    scale = torch.clamp(norm, min=ADAMW_HYPER["max_norm"]) / ADAMW_HYPER["max_norm"]
+    h = ADAMW_HYPER
+    library = lambda: torch._fused_adamw_(  # noqa: E731
+        params, grads, mu, nu, [], steps, lr=h["learning_rate"], beta1=h["b1"], beta2=h["b2"],
+        weight_decay=h["weight_decay"], eps=h["eps"], amsgrad=False, maximize=False,
+        grad_scale=scale, found_inf=None)
+    return dict(
+        dtype=str(dtype), leaves=len(params), params=sum(p.numel() for p in params),
+        checks=checks, bytes=nbytes, ms=ms, bytes_per_s=nbytes / ms * 1e3, bound_ms=least_ms,
+        plain_ms=time_ms(lambda: lm._clip_adamw_plain(grads, mu, nu, params, norm, 3,
+                                                      **ADAMW_HYPER), iters=5),
+        library_ms=time_ms(library, iters=10),
+        norm_ms=time_ms(lambda: lm._global_norm(grads), iters=10),
+    )
+
+
+def phase_adamw() -> dict:
+    """A1 checked and timed (adamw_times) for f32 leaves (the benchmark's
+    masters) and bf16 ones (bench_torch.py's)."""
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        times[str(dtype)] = adamw_times(dtype)
+        torch.cuda.empty_cache()
+    return times
+
+
+def main_adamw_times() -> int:
+    """`python3 chip_smoke.py --adamw-times`: phase_adamw, and nothing else,
+    for the `ray_tpu_torch` beside this script."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    print(json.dumps({"adamw_times": phase_adamw()}), flush=True)
     return 0
 
 
@@ -934,15 +1101,30 @@ def zero_launch_counts() -> None:
     flash.flash_attention_fwd.launches = 0
     flash.flash_attention_bwd.launches_dq = 0
     flash.flash_attention_bwd.launches_dkv = 0
+    adamw.clip_adamw.launches = 0
 
 
-def counted_step(ctx, state, batch, expect: tuple, what: str):
+# The leaves of a dense TransformerConfig's parameter tree (embed, final
+# norm, head and 9 stacked [L, ...] leaves): A1's launches in one step.
+LM_LEAVES = 12
+# A1's launches in one step of each training path, as that path's own run
+# counted them from 0 (zero_launch_counts just before the step).
+ADAMW_LAUNCHES = {}
+
+
+def counted_step(ctx, state, batch, expect: tuple, what: str, path: str = None):
     """One train step with the kernels' launch counts set to 0 just before
-    it and checked just after."""
+    it and checked just after: B1-B3 against `expect`, A1 once a leaf;
+    A1's count recorded under `path` in ADAMW_LAUNCHES where one is given."""
+    leaves = len(state["opt_state"]["mu"])
     zero_launch_counts()
     state, metrics = ctx.train_step(state, batch)
     got = launch_counts()
     check(got == expect, f"{what}: launches (fwd, dq, dkv) = {got}, expected {expect}")
+    check(adamw.clip_adamw.launches == leaves,
+          f"{what}: {adamw.clip_adamw.launches} clip + AdamW launches for {leaves} leaves")
+    if path is not None:
+        ADAMW_LAUNCHES[path] = adamw.clip_adamw.launches
     return state, metrics
 
 
@@ -990,7 +1172,7 @@ def phase_training(card: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(TIMED_STEPS):
-        state, m = counted_step(ctx, state, batch, per_step, f"timed step {i}")
+        state, m = counted_step(ctx, state, batch, per_step, f"timed step {i}", "train_step")
         metrics.append(m)
     # Each step updates the state the next reads, so reading the last loss
     # means every step has run (as bench.py syncs).
@@ -1198,7 +1380,8 @@ def phase_parallel(card: str) -> tuple:
         step_s, metrics = [], []
         for i in range(2):
             t0 = time.perf_counter()
-            state, m = counted_step(ctx, state, batch, per_step, f"{strategy} step {i}")
+            state, m = counted_step(ctx, state, batch, per_step, f"{strategy} step {i}",
+                                    "sharded_train_step")
             metrics.append((float(m["loss"]), float(m["grad_norm"])))  # waits for the step
             step_s.append(time.perf_counter() - t0)
         ours = {"first_loss": metrics[0][0], "first_grad_norm": metrics[0][1],
@@ -1829,7 +2012,8 @@ def checkpoint_on_card(mesh) -> tuple:
     back = tensors_of(restored)
     same = len(back) == len(tensors) and all(torch.equal(a, b) for a, b in zip(tensors, back))
     check(same, "checkpoint: the restored state is not the saved one bit for bit")
-    resumed, m_resumed = counted_step(ctx, restored, batch, per_step, "resumed step")
+    resumed, m_resumed = counted_step(ctx, restored, batch, per_step, "resumed step",
+                                      "checkpoint_resumed_step")
     unbroken, m_unbroken = counted_step(ctx, state, batch, per_step, "unbroken step")
     a_leaves, b_leaves = tensors_of(resumed), tensors_of(unbroken)
     bitwise = (torch.equal(m_resumed["loss"], m_unbroken["loss"])
@@ -1957,6 +2141,7 @@ def trainer_loop(config: dict) -> None:
         report = {**(start if step == first else {"attempt": start["attempt"]}), "step": step,
                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                   "step_s": step_s, "launches": [fwd, dq, dkv],
+                  "adamw_launches": adamw.clip_adamw.launches,
                   "peak_bytes": torch.cuda.max_memory_allocated()}
         ckpt = None
         if step == TRAINER_CKPT_STEP:
@@ -2041,6 +2226,9 @@ def phase_runtime_trainer(card: str, training: dict) -> tuple:
         for r in reports:
             check(r["launches"] == per_step,
                   f"trainer: attempt {r['attempt']} step {r['step']} launches {r['launches']}")
+            check(r["adamw_launches"] == LM_LEAVES, f"trainer: attempt {r['attempt']} step "
+                  f"{r['step']}: {r['adamw_launches']} clip + AdamW launches")
+        ADAMW_LAUNCHES["trainer_worker_step"] = reports[0]["adamw_launches"]
         first, resumed = hist[0], hist[2]
         for r in (first, resumed):
             check(r["foreign_modules"] == [],
@@ -2805,6 +2993,7 @@ def tune_trainer_loop(config: dict) -> None:
         launches = list(launch_counts())
         train.report({**(start if step == 1 else {}), "step": step, "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]), "launches": launches,
+                      "adamw_launches": adamw.clip_adamw.launches,
                       "started_at": started_at, "reported_at": time.time()})
 
 
@@ -2842,7 +3031,8 @@ def tune_function_trainable(config: dict) -> None:
         launches = list(launch_counts())
         tune.report({**(start if step == first else {"attempt": attempt}), "step": step,
                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "launches": launches, "reported_at": time.time()},
+                     "launches": launches, "adamw_launches": adamw.clip_adamw.launches,
+                     "reported_at": time.time()},
                     checkpoint=Checkpoint.from_torch_state(state))
         if attempt == 1 and step == TUNE_FN_FAIL_STEP:
             deadline = time.monotonic() + TUNE_TIMEOUT
@@ -2939,6 +3129,9 @@ def tuner_over_trainer(training: dict, storage: str) -> dict:
         for r in h:
             check(r["launches"] == per_step, f"tune: lr {lr} step {r['step']} launches "
                   f"{r['launches']}")
+            check(r["adamw_launches"] == LM_LEAVES, f"tune: lr {lr} step {r['step']}: "
+                  f"{r['adamw_launches']} clip + AdamW launches")
+        ADAMW_LAUNCHES["tune_trainer_trial"] = h[0]["adamw_launches"]
     # Phase 5's rate equals phase 5's steps; the other equals its first step
     # (the loss and gradient before any update) and differs from the second.
     base, other = hist[TUNE_LRS[0]], hist[TUNE_LRS[1]]
@@ -3016,6 +3209,9 @@ def function_trial_with_retry(storage: str) -> dict:
     for r in hist:
         check(r["launches"] == per_step, f"tune: function trial attempt {r['attempt']} step "
               f"{r['step']} launches {r['launches']}")
+        check(r["adamw_launches"] == LM_LEAVES, f"tune: function trial attempt "
+              f"{r['attempt']} step {r['step']}: {r['adamw_launches']} clip + AdamW launches")
+    ADAMW_LAUNCHES["tune_function_trial"] = hist[0]["adamw_launches"]
     # The same steps unbroken, in this process.
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)
@@ -3198,7 +3394,7 @@ def cluster_job_train(steps: str) -> int:
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)
     batch = train_batch(cfg)
-    losses, grad_norms, launches, done_at = [], [], [], []
+    losses, grad_norms, launches, adamw_launches, done_at = [], [], [], [], []
     for _ in range(int(steps)):
         zero_launch_counts()
         state, m = ctx.train_step(state, batch)
@@ -3206,9 +3402,11 @@ def cluster_job_train(steps: str) -> int:
         grad_norms.append(float(m["grad_norm"]))
         done_at.append(time.time())
         launches.append(list(launch_counts()))
+        adamw_launches.append(adamw.clip_adamw.launches)
     print(json.dumps({"cluster_job": {
         "device": torch.cuda.get_device_name(0), "pid": os.getpid(), "entered_at": entered,
         "losses": losses, "grad_norms": grad_norms, "launches": launches,
+        "adamw_launches": adamw_launches,
         "step_done_at": done_at, "build_s": kernel_builds(),
         "foreign_modules": foreign_modules()}}), flush=True)
     return 0
@@ -3356,6 +3554,9 @@ def cluster_jobs(training: dict, workdir: str) -> tuple:
           f"{training['losses'][:n]} {training['grad_norms'][:n]}")
     per_step = [bench_config().n_layers] * 3
     check(rec["launches"] == [per_step] * n, f"job: launches {rec['launches']}")
+    check(rec["adamw_launches"] == [LM_LEAVES] * n,
+          f"job: clip + AdamW launches {rec['adamw_launches']}")
+    ADAMW_LAUNCHES["cluster_job_step"] = rec["adamw_launches"][0]
     check(rec["device"] == torch.cuda.get_device_name(0), f"job: ran on {rec['device']}")
     check(rec["foreign_modules"] == [], f"job: loaded {rec['foreign_modules']}")
     check(set(rec["build_s"].values()) <= {0.0}, f"job: built the kernels again: {rec['build_s']}")
@@ -3576,7 +3777,7 @@ def bench_sweep_line() -> dict:
     return {"seconds": seconds, "line": line}
 
 
-def driver_step(what: str, cfg: TransformerConfig, batch: dict) -> tuple:
+def driver_step(what: str, cfg: TransformerConfig, batch: dict, path: str) -> tuple:
     """One step of `cfg` on `batch` from a fresh state (seed SEED) with exact
     launches and its peak memory above what the process held before the
     state was made (`held_before_gb`); its loss against the same state's forward
@@ -3600,7 +3801,7 @@ def driver_step(what: str, cfg: TransformerConfig, batch: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, m = counted_step(ctx, state, batch, expect, what)
+    state, m = counted_step(ctx, state, batch, expect, what, path)
     loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
     step_s = time.perf_counter() - t0
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
@@ -3671,7 +3872,7 @@ def phase_drivers(card: str, g) -> tuple:
         cfg = bench_torch.make_cfg(seq)
         batch = bench_torch.token_batch(cfg.vocab_size, bs, seq, "cuda")
         points[str(seq)], launches[f"bench_sweep_{seq}"] = driver_step(
-            f"bench sweep {bs} x {seq}", cfg, batch)
+            f"bench sweep {bs} x {seq}", cfg, batch, f"bench_sweep_{seq}")
         del batch
     kernel_times = long_context_kernel_times(g)
     torch.cuda.empty_cache()
@@ -3686,7 +3887,7 @@ def phase_drivers(card: str, g) -> tuple:
           == list(PROFILE_LINES), f"profile_step_gpu.py printed {lines}")
     full_step, launches["profile_step"] = driver_step(
         "profile_step full step", profile_step_gpu.full_step_config(),
-        profile_step_gpu.full_step_batch())
+        profile_step_gpu.full_step_batch(), "profile_step")
     out = {"card": card,
            "bench_torch": bench, "sweep_steps": points, "kernels_at_16384": kernel_times,
            "profile_step_gpu": {"seconds": profile_s, "lines": lines, "full_step": full_step},
@@ -3695,7 +3896,10 @@ def phase_drivers(card: str, g) -> tuple:
     return out, launches
 
 
-LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE}
+LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE,
+             "adamw": adamw.SOURCE}
+# A1's instantiations, which must spill nothing either.
+ADAMW_LABELS = ("adamw_kernel<float>", "adamw_kernel<__nv_bfloat16>")
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
 WGMMA_KERNELS = tuple(KERNEL_MARKERS.values())
@@ -3710,9 +3914,10 @@ def _kernel_label(symbol: str) -> str:
         for i in range(len(m.group())):  # a hash's digits may run into the length
             n = int(m.group()[i:])
             name = symbol[m.end():m.end() + n]
-            arg = re.match(r"ILi(\d+)E", symbol[m.end() + n:])
+            arg = re.match(r"I(?:Li(\d+)|(f)|13(__nv_bfloat16))E", symbol[m.end() + n:])
             if name.endswith("_kernel") and arg:
-                return f"{name}<{arg.group(1)}>"
+                value = arg.group(1) or arg.group(3) or "float"
+                return f"{name}<{value}>"
     return symbol
 
 
@@ -3815,6 +4020,9 @@ def build_kernels() -> dict:
     for label in sorted(ptxas):
         print(f"ptxas: {label}: {json.dumps(ptxas[label])}"
               + (f" sass: {json.dumps(sass[label])}" if label in sass else ""), flush=True)
+    for label in ADAMW_LABELS:
+        check(ptxas[label].get("spill_stores") == 0 and ptxas[label].get("spill_loads") == 0,
+              f"{label} spills: {ptxas[label]}")
     for kernel in WGMMA_KERNELS:
         for d in flash.HEAD_DIMS:
             label = f"{kernel}<{d}>"
@@ -3851,6 +4059,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timing = phase_kernels(g)
     torch.cuda.empty_cache()
+    adamw_timing = phase_adamw()
+    print(json.dumps({"adamw_times": adamw_timing}), flush=True)
     lap("2")
 
     serving, serve_launches, phase3_batch = phase_serving(card)
@@ -3994,6 +4204,16 @@ def main() -> int:
         entry["compiled"] = {f"{symbol}<{d}>": {**compiled["ptxas"].get(f"{symbol}<{d}>", {}),
                                                 **compiled["sass"].get(f"{symbol}<{d}>", {})}
                              for d in flash.HEAD_DIMS}
+    kernels.append(
+        {"name": "adamw", "route": "cuda", "source": source + adamw.SOURCE,
+         "replaces": "none: the JAX package leaves clip + AdamW to XLA's fusion of optax's chain",
+         "design": "adamw_kernel: clip and AdamW in one pass a leaf after the global norm, "
+                   "read from the device; f32 registers in optax's order, 16-byte loads and "
+                   "stores (float4, 8 bf16), a grid-stride loop over 4 blocks of 256 an SM, "
+                   "one element at a time for a tail or an unaligned pointer",
+         "launches": ADAMW_LAUNCHES["train_step"], "launches_by_path": dict(ADAMW_LAUNCHES),
+         **adamw_timing,
+         "compiled": {label: compiled["ptxas"][label] for label in ADAMW_LABELS}})
     print(f"card: {card}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s; by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
@@ -4005,5 +4225,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times}
+    modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times,
+             "--adamw-times": main_adamw_times}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

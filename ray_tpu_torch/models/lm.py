@@ -28,6 +28,7 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     param_axes,
 )
+from ray_tpu_torch.ops.cuda import adamw
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_axis_sizes
 from ray_tpu_torch.parallel.sharding import (
     Rules,
@@ -39,6 +40,7 @@ from ray_tpu_torch.parallel.sharding import (
     tree_map,
 )
 from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util.metrics import Counter
 
 
 def cross_entropy_loss(
@@ -71,12 +73,24 @@ class Optimizer(NamedTuple):
     update: Callable[[List[torch.Tensor], Dict, List[torch.Tensor]], Dict]
 
 
+# Leaves that `default_optimizer`'s updates took through the CUDA kernel
+# (`path` "kernel") or the plain `_foreach` chain ("plain").
+_optimizer_leaves = Counter(
+    "lm_optimizer_leaves", "leaves updated by default_optimizer, by path",
+    tag_keys=("path",))
+
+
 def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) -> Optimizer:
     """optax.chain(clip_by_global_norm(1.0), adamw(learning_rate, b1=0.9,
     b2=0.95, eps=1e-8, weight_decay)), in optax's order. Weight decay applies
     to every leaf, norms too (optax gets no mask here); the moments are kept
-    in the params' dtype, as optax keeps them."""
-    b1, b2, eps, max_norm = 0.9, 0.95, 1e-8, 1.0
+    in the params' dtype, as optax keeps them, as lists in the leaves' order.
+
+    CUDA leaves take one kernel launch each after the global norm
+    (`ops/cuda/adamw.py:clip_adamw`), which raises on a leaf it cannot take;
+    other leaves take the plain chain (`_clip_adamw_plain`)."""
+    hyper = dict(learning_rate=learning_rate, weight_decay=weight_decay, b1=0.9, b2=0.95,
+                 eps=1e-8, max_norm=1.0)
 
     def init(params: List[torch.Tensor]) -> Dict:
         return {
@@ -91,17 +105,33 @@ def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) ->
         grads = list(grads)
         if grad_norm is None:
             grad_norm = _global_norm(grads)
-        # clip_by_global_norm: g * (max_norm / max(|g|, max_norm)), in place.
-        torch._foreach_mul_(grads, max_norm / torch.clamp(grad_norm, min=max_norm))
         count = opt_state["count"] + 1
         mu, nu = opt_state["mu"], opt_state["nu"]
-        upd = _scale_by_adam(grads, mu, nu, count, b1, b2, eps)
-        # add_decayed_weights, then scale_by_learning_rate and apply_updates.
-        torch._foreach_add_(upd, params, alpha=weight_decay)
-        torch._foreach_add_(params, upd, alpha=-learning_rate)
+        if any(p.device.type == "cuda" for p in params):
+            adamw.clip_adamw(grads, mu, nu, params, grad_norm, count, **hyper)
+            _optimizer_leaves.inc(len(params), tags={"path": "kernel"})
+        else:
+            _clip_adamw_plain(grads, mu, nu, params, grad_norm, count, **hyper)
+            _optimizer_leaves.inc(len(params), tags={"path": "plain"})
         return {"count": count, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)
+
+
+def _clip_adamw_plain(grads: List[torch.Tensor], mu: List[torch.Tensor], nu: List[torch.Tensor],
+                      params: List[torch.Tensor], grad_norm: torch.Tensor, count: int, *,
+                      learning_rate: float, weight_decay: float, b1: float, b2: float,
+                      eps: float, max_norm: float) -> None:
+    """clip_by_global_norm(max_norm) then adamw as a chain of `_foreach`
+    passes, on any device: the plain version of `ops/cuda/adamw.py`'s kernel,
+    with the same arguments. Clips `grads` in place and updates the moments
+    and `params` in place; `count` is the step count after this update."""
+    # clip_by_global_norm: g * (max_norm / max(|g|, max_norm)), in place.
+    torch._foreach_mul_(grads, max_norm / torch.clamp(grad_norm, min=max_norm))
+    upd = _scale_by_adam(grads, mu, nu, count, b1, b2, eps)
+    # add_decayed_weights, then scale_by_learning_rate and apply_updates.
+    torch._foreach_add_(upd, params, alpha=weight_decay)
+    torch._foreach_add_(params, upd, alpha=-learning_rate)
 
 
 def _scale_by_adam(grads: List[torch.Tensor], mu: List[torch.Tensor], nu: List[torch.Tensor],

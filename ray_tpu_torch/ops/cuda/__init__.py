@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels (sources in ray_tpu_torch/csrc/), each beside
-its plain PyTorch version."""
+"""Hand-written CUDA kernels (sources in ray_tpu_torch/csrc/), each with
+its plain PyTorch version: flash attention's beside it, the optimizer's
+clip + AdamW (`adamw`) in `ray_tpu_torch/models/lm.py`."""

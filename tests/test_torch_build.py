@@ -95,22 +95,30 @@ def test_chip_smoke_reads_the_load_records(nvcc, tmp_path, monkeypatch, found_bu
     record: nvcc's seconds (`kernel_builds`, the `build_s` that the replica,
     the cluster job and the cluster batch report), ptxas's registers,
     shared memory and spills from the log beside the library, and the
-    tensor-core instructions in the SASS of the library file loaded; a
-    later process that finds the libraries built reports the same."""
+    tensor-core instructions in the SASS of the library file loaded, for
+    the attention kernels at both head dims and the clip + AdamW kernel in
+    f32 and bf16; a later process that finds the libraries built reports
+    the same."""
     import chip_smoke
+    from ray_tpu_torch.ops.cuda import adamw
     from ray_tpu_torch.ops.cuda import flash_attention as flash
 
-    kernels = {flash.SOURCE: ["fwd_wgmma_kernel"],
-               flash.BWD_SOURCE: ["dq_wgmma_kernel", "dkv_wgmma_kernel"]}
+    # Each source's kernels and the mangled template argument of each of
+    # their instantiations, one line a kernel.
+    dims = ("Li64", "Li128")
+    kernels = {flash.SOURCE: {"fwd_wgmma_kernel": dims},
+               flash.BWD_SOURCE: {"dq_wgmma_kernel": dims, "dkv_wgmma_kernel": dims},
+               adamw.SOURCE: {"adamw_kernel": ("f", "13__nv_bfloat16")}}
     for source, names in kernels.items():
-        (_build.CSRC_DIR / source).write_text("".join(n + "\n" for n in names))
+        (_build.CSRC_DIR / source).write_text(
+            "".join(f"{n} {' '.join(args)}\n" for n, args in names.items()))
     stand_in = (
         f"#!{sys.executable}\n"
         "import sys\n"
         f"PTXAS = {PTXAS!r}\n"
         "out = sys.argv[sys.argv.index('-o') + 1]\n"
-        "syms = [f'_Z{len(n)}{n}ILi{d}EEvv' for src in sys.argv if src.endswith('.cu')\n"
-        "        for n in open(src).read().split() for d in (64, 128)]\n"
+        "syms = [f'_Z{len(n)}{n}I{a}EEvv' for src in sys.argv if src.endswith('.cu')\n"
+        "        for n, *args in map(str.split, open(src)) for a in args]\n"
         "open(out, 'w').write(''.join(s + '\\n' for s in syms))\n"
         "sys.stderr.write(''.join(PTXAS.format(sym=s) for s in syms))\n"
     )
@@ -144,7 +152,8 @@ def test_chip_smoke_reads_the_load_records(nvcc, tmp_path, monkeypatch, found_bu
     builds = chip_smoke.kernel_builds()
     assert set(builds) == set(chip_smoke.LIBRARIES)
     assert all((s == 0.0) if found_built else (s > 0.0) for s in builds.values())
-    labels = {f"{n}<{d}>" for names in kernels.values() for n in names for d in (64, 128)}
+    labels = ({f"{n}<{d}>" for n in chip_smoke.KERNEL_MARKERS.values() for d in (64, 128)}
+              | set(chip_smoke.ADAMW_LABELS))
     assert set(report["ptxas"]) == set(report["sass"]) == labels
     for d in (64, 128):
         assert report["ptxas"][f"fwd_wgmma_kernel<{d}>"] == {
