@@ -194,9 +194,11 @@ printing the final line:
    None, batch 8 x 2048) as in (b): 48/24/24 launches. Each driver is
    bounded by DRIVER_TIMEOUT.
 
-Every training step whose launches are counted (phases 5, 6, 8, 9, 12,
-13 and 14) also holds A1 to one launch a leaf; the kernels line gives A1's
-count a step by path (ADAMW_LAUNCHES).
+Launches are counted as deltas of `_build.launch_counts()` (the counter
+`cuda_kernel_launches`, by C entry point) around the work, in the process
+that launches. Every training step whose launches are counted (phases 5,
+6, 8, 9, 12, 13 and 14) also holds A1 to one launch a leaf; the kernels
+line gives A1's count a step by path (ADAMW_LAUNCHES).
 
 Prints JSON lines of the serving and training numbers, the profiles, the
 pipeline and experts, the RL learners, the checkpoint, the trainer, the
@@ -287,8 +289,8 @@ def _script(name: str):
 
 profile_step_gpu = _script("profile_step_gpu")
 
-# H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit; the
+# bf16 peak is bench_torch.py's, by the card's name (`peak_flops`).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -404,8 +406,16 @@ def visible_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
 
 
+def peak_flops(dtype) -> float:
+    """The card's dense peak in `dtype`: bf16's from bench_torch.py's table
+    by the card's name, f32's outside the tensor cores otherwise."""
+    if dtype == torch.bfloat16:
+        return bench_torch.card_peak(torch.cuda.get_device_name())
+    return PEAK_F32_FLOPS
+
+
 def bound(flops: float, nbytes: float, dtype):
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = peak_flops(dtype)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
@@ -675,10 +685,10 @@ def adamw_times(dtype) -> dict:
         norm = lm._global_norm(grads)
         n = norm if count == 1 else norm * 10
         before = [(p.clone(), m.clone(), v.clone()) for p, m, v in zip(params, mu, nu)]
-        zero_launch_counts()
+        since = _build.launch_counts()
         adamw.clip_adamw(grads, mu, nu, params, n, count, **ADAMW_HYPER)
-        check(adamw.clip_adamw.launches == len(params),
-              f"A1 {dtype}: {adamw.clip_adamw.launches} launches for {len(params)} leaves")
+        launched = adamw_launches(since)
+        check(launched == len(params), f"A1 {dtype}: {launched} launches for {len(params)} leaves")
         gaps = adamw_gaps(before, grads, list(zip(params, mu, nu)), n, count)
         del before
         torch.cuda.empty_cache()
@@ -828,14 +838,14 @@ def phase_serving(card: str) -> tuple:
             errors.append(e)
 
     threads = [threading.Thread(target=call, args=(i,)) for i in range(N_REQUESTS)]
-    zero_launch_counts()
+    since = _build.launch_counts()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts(since)
     check(not errors, f"request failed: {errors[:1]!r}")
     check(not any(t.is_alive() for t in threads), "a request did not finish")
     check(all(isinstance(o, int) and 0 <= o < cfg.vocab_size for o in outs), "bad answers")
@@ -1088,43 +1098,42 @@ def bench_config() -> TransformerConfig:
     return bench_torch.make_cfg(TRAIN_SEQ)
 
 
-def launch_counts() -> tuple:
-    return (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-            flash.flash_attention_bwd.launches_dkv)
+# B1's, B2's and B3's C entry points, as `_build.launch_counts()` names them.
+LAUNCH_KEYS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 
-# The names of launch_counts()' three counts, as columns of a table.
-LAUNCH_KEYS = ("launches", "launches_dq", "launches_dkv")
+def launch_counts(since: dict) -> tuple:
+    """B1's, B2's and B3's launches in this process since `since`, a
+    `_build.launch_counts()` taken before the work."""
+    now = _build.launch_counts()
+    return tuple(now.get(k, 0) - since.get(k, 0) for k in LAUNCH_KEYS)
 
 
-def zero_launch_counts() -> None:
-    flash.flash_attention_fwd.launches = 0
-    flash.flash_attention_bwd.launches_dq = 0
-    flash.flash_attention_bwd.launches_dkv = 0
-    adamw.clip_adamw.launches = 0
+def adamw_launches(since: dict) -> int:
+    """A1's launches in this process since `since`, as `launch_counts`."""
+    return _build.launch_counts().get("adamw_update", 0) - since.get("adamw_update", 0)
 
 
 # The leaves of a dense TransformerConfig's parameter tree (embed, final
 # norm, head and 9 stacked [L, ...] leaves): A1's launches in one step.
 LM_LEAVES = 12
 # A1's launches in one step of each training path, as that path's own run
-# counted them from 0 (zero_launch_counts just before the step).
+# counted them.
 ADAMW_LAUNCHES = {}
 
 
 def counted_step(ctx, state, batch, expect: tuple, what: str, path: str = None):
-    """One train step with the kernels' launch counts set to 0 just before
-    it and checked just after: B1-B3 against `expect`, A1 once a leaf;
-    A1's count recorded under `path` in ADAMW_LAUNCHES where one is given."""
+    """One train step with the kernels' launches counted around it: B1-B3
+    against `expect`, A1 once a leaf; A1's count recorded under `path` in
+    ADAMW_LAUNCHES where one is given."""
     leaves = len(state["opt_state"]["mu"])
-    zero_launch_counts()
+    since = _build.launch_counts()
     state, metrics = ctx.train_step(state, batch)
-    got = launch_counts()
+    got, got_adamw = launch_counts(since), adamw_launches(since)
     check(got == expect, f"{what}: launches (fwd, dq, dkv) = {got}, expected {expect}")
-    check(adamw.clip_adamw.launches == leaves,
-          f"{what}: {adamw.clip_adamw.launches} clip + AdamW launches for {leaves} leaves")
+    check(got_adamw == leaves, f"{what}: {got_adamw} clip + AdamW launches for {leaves} leaves")
     if path is not None:
-        ADAMW_LAUNCHES[path] = adamw.clip_adamw.launches
+        ADAMW_LAUNCHES[path] = got_adamw
     return state, metrics
 
 
@@ -1213,6 +1222,7 @@ def phase_training(card: str) -> tuple:
     # score and value products (fwd and bwd) in mfu_attn_incl.
     param_flops = 6 * n_params
     attn_flops = 12 * cfg.n_layers * cfg.d_model * TRAIN_SEQ
+    peak = peak_flops(torch.bfloat16)
     training = {
         "card": card,
         "config": "bench.py head: d2048 L16 H16/16 Dh128 ff5504 V32000, bf16 params and "
@@ -1220,8 +1230,8 @@ def phase_training(card: str) -> tuple:
         "n_params": n_params, "warmup_steps": WARMUP_STEPS, "timed_steps": TIMED_STEPS,
         "timed_s": dt, "step_s": dt / TIMED_STEPS,
         "train_tokens_per_s": tokens_per_s,
-        "mfu": param_flops * tokens_per_s / PEAK_BF16_FLOPS,
-        "mfu_attn_incl": (param_flops + attn_flops) * tokens_per_s / PEAK_BF16_FLOPS,
+        "mfu": param_flops * tokens_per_s / peak,
+        "mfu_attn_incl": (param_flops + attn_flops) * tokens_per_s / peak,
         "peak_mem_gb": peak_gb, "losses": losses, "grad_norms": grad_norms,
         "launches_per_step": dict(zip(("fwd", "dq", "dkv"), per_step)),
         "launches_remat_none_step": dict(zip(("fwd", "dq", "dkv"), none_step)),
@@ -1273,10 +1283,10 @@ def ring_schedule_check(name, b, h, hkv, g) -> tuple:
     do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
     o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
     whole = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    zero_launch_counts()
+    since = _build.launch_counts()
     ring_o, ring_lse, *ring_grads = ring_schedule(q, k, v, do, n=RING_N, causal=True)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = launch_counts(since)
     f32 = [t.float() for t in (q, k, v, do)]
     o_p, lse_p = flash.flash_attention_fwd_plain(*f32[:3], causal=True)
     plain = flash.flash_attention_bwd_plain(*f32[:3], o_p, lse_p, f32[3], causal=True)
@@ -1525,10 +1535,10 @@ def pipeline_schedules() -> tuple:
         leaf.requires_grad_(True)
     batch = train_batch(cfg)
     L = cfg.n_layers
-    zero_launch_counts()
+    since = _build.launch_counts()
     unpipelined = lambda: _loss_and_grads(cfg, params, batch, "unpipelined")  # noqa: E731
     (ref_loss, ref), _, ref_peak, _ = _timed_run(unpipelined)
-    check(launch_counts() == (L, L, L), f"unpipelined launches {launch_counts()}")
+    check(launch_counts(since) == (L, L, L), f"unpipelined launches {launch_counts(since)}")
     _, ref_s, _, ref_issue = _timed_run(unpipelined)
     ref_norm = _grad_norm(ref)
     out = {"config": f"bench.py head cut to {L} layers (d2048 H16/16 ff5504 V32000, bf16, "
@@ -1542,9 +1552,9 @@ def pipeline_schedules() -> tuple:
             expect = ((m * L // PP_STAGES * (2 * PP_STAGES - 1)) if schedule == "1f1b"
                       else m * L, m * L, m * L)
             run = lambda: _loss_and_grads(cfg, params, batch, schedule, m)  # noqa: E731
-            zero_launch_counts()
+            since = _build.launch_counts()
             (loss, grads), _, peak, _ = _timed_run(run)
-            got = launch_counts()
+            got = launch_counts(since)
             _, secs, _, issued = _timed_run(run)
             loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
             norm_rel = abs(_grad_norm(grads) - ref_norm) / ref_norm
@@ -1673,11 +1683,11 @@ def moe_at_mixtral_width(mesh) -> dict:
 def entry_on_card() -> dict:
     """dryrun.entry()'s forward at its configuration: 8 B1 launches."""
     fn, args = dryrun.entry(device="cuda")
-    zero_launch_counts()
+    since = _build.launch_counts()
     with torch.no_grad():
         logits = fn(*args)
     torch.cuda.synchronize()
-    got = launch_counts()
+    got = launch_counts(since)
     out = {"shape": list(logits.shape), "launches": dict(zip(("fwd", "dq", "dkv"), got)),
            "finite": bool(torch.isfinite(logits).all())}
     print(f"entry(): {json.dumps(out)}", flush=True)
@@ -2133,15 +2143,15 @@ def trainer_loop(config: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        zero_launch_counts()
+        since = _build.launch_counts()
         state, m = ctx.train_step(state, batch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        fwd, dq, dkv = launch_counts()
+        fwd, dq, dkv = launch_counts(since)
         report = {**(start if step == first else {"attempt": start["attempt"]}), "step": step,
                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                   "step_s": step_s, "launches": [fwd, dq, dkv],
-                  "adamw_launches": adamw.clip_adamw.launches,
+                  "adamw_launches": adamw_launches(since),
                   "peak_bytes": torch.cuda.max_memory_allocated()}
         ckpt = None
         if step == TRAINER_CKPT_STEP:
@@ -2377,12 +2387,12 @@ class LMDeployment:
         return self.predict_batch(request)
 
     def reset(self) -> list:
-        """Zero this process's kernel launch counts, its record of batches
-        and its peak memory; returns the sizes of the batches dropped from
-        the record (those run since the last `stats`)."""
+        """Start this process's kernel launch counts, its record of batches
+        and its peak memory anew; returns the sizes of the batches dropped
+        from the record (those run since the last `stats`)."""
         with self.lock:
             sizes = [b["size"] for b in self.batches]
-            zero_launch_counts()
+            self.since = _build.launch_counts()
             self.batches = []
             torch.cuda.reset_peak_memory_stats()
         return sizes
@@ -2394,7 +2404,7 @@ class LMDeployment:
         with self.lock:
             batches, self.batches = self.batches, []
             return {"device": torch.cuda.get_device_name(),
-                    "launches": launch_counts(),
+                    "launches": launch_counts(self.since),
                     "batches": batches, "peak_bytes": torch.cuda.max_memory_allocated(),
                     "foreign_modules": foreign_modules(), "build_s": kernel_builds(),
                     "start_s": self.start_s, "gpu_ids": ray_tpu_torch.get_gpu_ids(),
@@ -2419,7 +2429,7 @@ class LMPredictor(Predictor):
         torch.cuda.synchronize()
         p.load_s = time.perf_counter() - t0
         p.batches = 0
-        zero_launch_counts()
+        p.since = _build.launch_counts()
         return p
 
     def predict(self, batch):
@@ -2429,7 +2439,7 @@ class LMPredictor(Predictor):
         n = len(toks)
         out = {"id": np.asarray(batch["id"]), "token": last.argmax(-1).cpu().numpy(),
                "logits": last.cpu().numpy(), "batch": np.full(n, self.batches),
-               **{k: np.full(n, c) for k, c in zip(LAUNCH_KEYS, launch_counts())},
+               **{k: np.full(n, c) for k, c in zip(LAUNCH_KEYS, launch_counts(self.since))},
                "load_s": np.full(n, self.load_s),
                "foreign": np.full(n, len(foreign_modules())),
                "gpu_ids": np.full(n, ",".join(map(str, ray_tpu_torch.get_gpu_ids()))),
@@ -2517,14 +2527,14 @@ def replica_run(handle, send, prompts, logits: bool, n_layers: int, what: str) -
     """One concurrent run of the prompts through the replica, after a
     warm-up batch of the first MAX_BATCH of them on the same path (the
     first calls through the proxy and the router): this process's and the
-    replica's B1-B3 counts zeroed just before the run and read just after;
+    replica's B1-B3 counts taken just before the run and just after;
     the replica must have launched B1 once a layer a batch and B2, B3
     never, and this process none of them."""
     warmup_wall = concurrent_requests(send, prompts[:MAX_BATCH], logits)[2]
     warmup_sizes = ray_tpu_torch.get(handle.reset.remote(), timeout=SERVE_TIMEOUT)
-    zero_launch_counts()
+    since = _build.launch_counts()
     outs, lat, wall = concurrent_requests(send, prompts, logits)
-    here = launch_counts()
+    here = launch_counts(since)
     stats = ray_tpu_torch.get(handle.stats.remote(), timeout=SERVE_TIMEOUT)
     batches = stats["batches"]
     check(here == (0, 0, 0), f"{what}: this process launched B1-B3 {here} times")
@@ -2615,7 +2625,7 @@ def phase_serve_stack(card: str, serving: dict) -> tuple:
         # predict() copies a directory checkpoint into a new temporary
         # directory, which it leaves behind: keep that copy under `root`.
         tempfile.tempdir, saved_tempdir = root, tempfile.tempdir
-        zero_launch_counts()
+        since = _build.launch_counts()
         t0 = time.perf_counter()
         try:
             out = BatchPredictor.from_checkpoint(ckpt, LMPredictor).predict(
@@ -2624,7 +2634,7 @@ def phase_serve_stack(card: str, serving: dict) -> tuple:
         finally:
             tempfile.tempdir = saved_tempdir
         predict_s = time.perf_counter() - t0
-        here = launch_counts()
+        here = launch_counts(since)
         check(here == (0, 0, 0), f"batch predictor: this process launched B1-B3 {here} times")
     finally:
         ray_tpu_torch.shutdown()
@@ -2639,9 +2649,9 @@ def phase_serve_stack(card: str, serving: dict) -> tuple:
     check(pred_ids == ["0"] and pred_visible == [visible_card(0)],
           f"batch predictor: the actor holds card ids {pred_ids}, sees {pred_visible}")
     launches_c = tuple(int(rows[k].max()) for k in LAUNCH_KEYS)
-    check(launches_c == (cfg.n_layers * 2, 0, 0) and sorted(set(rows["launches"].tolist()))
-          == [cfg.n_layers, 2 * cfg.n_layers],
-          f"batch predictor: launches {sorted(set(rows['launches'].tolist()))}, B2/B3 "
+    fwd_counts = sorted(set(rows[LAUNCH_KEYS[0]].tolist()))
+    check(launches_c == (cfg.n_layers * 2, 0, 0) and fwd_counts == [cfg.n_layers, 2 * cfg.n_layers],
+          f"batch predictor: launches {fwd_counts}, B2/B3 "
           f"{launches_c[1:]}")
     outs_c, batches_c = [None] * N_REQUESTS, []
     for b in sorted(set(rows["batch"].tolist())):
@@ -2926,13 +2936,13 @@ def phase_rl_algorithms(card: str, phase8: dict) -> tuple:
     in it."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    zero_launch_counts()
+    since = _build.launch_counts()
     ray_tpu_torch.init()
     try:
         out = {"card": card, "ppo": ppo_algorithm_on_card(phase8), **other_algorithms_on_card()}
     finally:
         ray_tpu_torch.shutdown()
-    launches = launch_counts()
+    launches = launch_counts(since)
     check(launches == (0, 0, 0), f"rl algorithms: B1-B3 launched {launches} times")
     out["launches"] = list(launches)
     out["seconds"] = time.perf_counter() - t_phase
@@ -2987,13 +2997,13 @@ def tune_trainer_loop(config: dict) -> None:
     for step in range(1, TUNE_STEPS + 1):
         torch.cuda.synchronize()
         started_at = time.time()
-        zero_launch_counts()
+        since = _build.launch_counts()
         state, m = ctx.train_step(state, batch)
         torch.cuda.synchronize()
-        launches = list(launch_counts())
+        launches = list(launch_counts(since))
         train.report({**(start if step == 1 else {}), "step": step, "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]), "launches": launches,
-                      "adamw_launches": adamw.clip_adamw.launches,
+                      "adamw_launches": adamw_launches(since),
                       "started_at": started_at, "reported_at": time.time()})
 
 
@@ -3025,13 +3035,13 @@ def tune_function_trainable(config: dict) -> None:
              "gpu_ids": ray_tpu_torch.get_gpu_ids(), "foreign_modules": foreign_modules(),
              "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
     for step in range(first, TUNE_FN_STEPS + 1):
-        zero_launch_counts()
+        since = _build.launch_counts()
         state, m = ctx.train_step(state, batch)
         torch.cuda.synchronize()
-        launches = list(launch_counts())
+        launches = list(launch_counts(since))
         tune.report({**(start if step == first else {"attempt": attempt}), "step": step,
                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "launches": launches, "adamw_launches": adamw.clip_adamw.launches,
+                     "launches": launches, "adamw_launches": adamw_launches(since),
                      "reported_at": time.time()},
                     checkpoint=Checkpoint.from_torch_state(state))
         if attempt == 1 and step == TUNE_FN_FAIL_STEP:
@@ -3394,19 +3404,19 @@ def cluster_job_train(steps: str) -> int:
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)
     batch = train_batch(cfg)
-    losses, grad_norms, launches, adamw_launches, done_at = [], [], [], [], []
+    losses, grad_norms, launches, adamw_counts, done_at = [], [], [], [], []
     for _ in range(int(steps)):
-        zero_launch_counts()
+        since = _build.launch_counts()
         state, m = ctx.train_step(state, batch)
         losses.append(float(m["loss"]))  # waits for the step
         grad_norms.append(float(m["grad_norm"]))
         done_at.append(time.time())
-        launches.append(list(launch_counts()))
-        adamw_launches.append(adamw.clip_adamw.launches)
+        launches.append(list(launch_counts(since)))
+        adamw_counts.append(adamw_launches(since))
     print(json.dumps({"cluster_job": {
         "device": torch.cuda.get_device_name(0), "pid": os.getpid(), "entered_at": entered,
         "losses": losses, "grad_norms": grad_norms, "launches": launches,
-        "adamw_launches": adamw_launches,
+        "adamw_launches": adamw_counts,
         "step_done_at": done_at, "build_s": kernel_builds(),
         "foreign_modules": foreign_modules()}}), flush=True)
     return 0
@@ -3435,10 +3445,10 @@ def cluster_batch() -> dict:
     cfg = TransformerConfig.llama_1b()
     params = llama_1b_params(cfg)
     toks = torch.tensor(serving_prompts(cfg)[:MAX_BATCH], dtype=torch.long, device="cuda")
-    zero_launch_counts()
+    since = _build.launch_counts()
     with torch.no_grad():
         last = forward(params, toks, cfg)[:, -1, :]
-    launches = launch_counts()
+    launches = launch_counts(since)
     return {"logits": last.cpu().numpy(), "launches": launches, "done_at": time.time(),
             "device": torch.cuda.get_device_name(0), "pid": os.getpid(),
             "gpu_ids": ray_tpu_torch.get_gpu_ids(),

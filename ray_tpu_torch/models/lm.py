@@ -40,7 +40,6 @@ from ray_tpu_torch.parallel.sharding import (
     tree_map,
 )
 from ray_tpu_torch.util import tracing
-from ray_tpu_torch.util.metrics import Counter
 
 
 def cross_entropy_loss(
@@ -73,13 +72,6 @@ class Optimizer(NamedTuple):
     update: Callable[[List[torch.Tensor], Dict, List[torch.Tensor]], Dict]
 
 
-# Leaves that `default_optimizer`'s updates took through the CUDA kernel
-# (`path` "kernel") or the plain `_foreach` chain ("plain").
-_optimizer_leaves = Counter(
-    "lm_optimizer_leaves", "leaves updated by default_optimizer, by path",
-    tag_keys=("path",))
-
-
 def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) -> Optimizer:
     """optax.chain(clip_by_global_norm(1.0), adamw(learning_rate, b1=0.9,
     b2=0.95, eps=1e-8, weight_decay)), in optax's order. Weight decay applies
@@ -109,10 +101,8 @@ def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1) ->
         mu, nu = opt_state["mu"], opt_state["nu"]
         if any(p.device.type == "cuda" for p in params):
             adamw.clip_adamw(grads, mu, nu, params, grad_norm, count, **hyper)
-            _optimizer_leaves.inc(len(params), tags={"path": "kernel"})
         else:
             _clip_adamw_plain(grads, mu, nu, params, grad_norm, count, **hyper)
-            _optimizer_leaves.inc(len(params), tags={"path": "plain"})
         return {"count": count, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)

@@ -5,7 +5,8 @@ Each library is compiled by `nvcc` from sources in this checkout into
 shared headers (`csrc/*.cuh`) and the flags, so a changed source rebuilds and
 an unchanged one is reused. Different libraries build in parallel when
 loaded from several threads. The libraries expose a plain C interface and
-are loaded with `ctypes`.
+are loaded with `ctypes`. Each successful kernel launch adds one to the
+counter `cuda_kernel_launches`, tagged by the kernel's C entry point.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pathlib import Path
 from typing import Any, Dict, Sequence
 
 from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util.metrics import Counter
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,6 +43,15 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # compile's seconds (`compile_s`, 0.0 when it was found built) and the whole
 # load's (`load_s`, the compile included).
 loads: Dict[str, Dict[str, Any]] = {}
+# Successful launches in this process, by the C entry point launched. It only
+# goes up: a reader takes `launch_counts()` before the work and subtracts.
+kernel_launches = Counter("cuda_kernel_launches", "kernel launches, by C entry point",
+                          tag_keys=("kernel",))
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel entry point in this process so far."""
+    return {dict(tags)["kernel"]: int(n) for tags, n in kernel_launches.snapshot().items()}
 
 
 def _nvcc() -> str:

@@ -15,16 +15,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Optional, Sequence
 
 import torch
 
-from ray_tpu_torch.ops.cuda._build import load_library
+from ray_tpu_torch.ops.cuda._build import kernel_launches, load_library
 
 SOURCE = "adamw.cu"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,10 +96,4 @@ def clip_adamw(grads: Sequence[torch.Tensor], mu: Sequence[torch.Tensor],
                  _DTYPE_CODES[p.dtype], norm.data_ptr(), hyper, sms, stream)
         if err != 0:
             raise RuntimeError(f"adamw_update launch failed on leaf {i}: CUDA error {err}")
-        with _count_lock:
-            clip_adamw.launches += 1
-
-
-# Kernel launches made by this process (one a leaf an update); chip_smoke.py
-# sets it to 0 before each training path and reads it after.
-clip_adamw.launches = 0
+        kernel_launches.inc(tags={"kernel": "adamw_update"})

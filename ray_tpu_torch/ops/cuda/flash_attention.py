@@ -24,13 +24,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF, _repeat_kv
-from ray_tpu_torch.ops.cuda._build import load_library
+from ray_tpu_torch.ops.cuda._build import kernel_launches, load_library
 
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
@@ -42,9 +41,6 @@ _MAX_GRID_Y = 65535
 # their library sets (`kernel_tiles`).
 _F32_TILE_ROWS = 16
 _ENCODE_FAILED = 999  # the CUDA side's code for a tensor map the CUDA driver refused
-# Serving runs batches from several threads at once: each count is a
-# read-modify-write, so it takes a lock.
-_count_lock = threading.Lock()
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -284,8 +280,7 @@ def _launch(q, k, v, causal: bool, scale: float):
     )
     if err != 0:
         raise _launch_error("flash_attn_fwd", err)
-    with _count_lock:
-        flash_attention_fwd.launches += 1
+    kernel_launches.inc(tags={"kernel": "flash_attn_fwd"})
     return o, lse
 
 
@@ -308,11 +303,6 @@ def flash_attention_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
     return _launch(q, k, v, causal, scale)
-
-
-# Kernel launches made by this process; read and reset by callers that need
-# to show a path went through the kernel.
-flash_attention_fwd.launches = 0
 
 
 # -- B2 and B3: backward ----------------------------------------------------
@@ -390,8 +380,7 @@ def _delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 class _BwdLaunch:
     """One backward on the card: checks the inputs, computes delta unless
     it is given, allocates dq, dk and dv, and holds every tensor the kernels
-    read while they may run. `dq()` launches B2 and `dkv()` launches B3,
-    each adding one to its count."""
+    read while they may run. `dq()` launches B2 and `dkv()` launches B3."""
 
     def __init__(self, q, k, v, o, lse, do, causal: bool, scale: float,
                  delta: Optional[torch.Tensor] = None):
@@ -443,8 +432,7 @@ class _BwdLaunch:
         )
         if err != 0:
             raise _launch_error("flash_attn_bwd_dq", err)
-        with _count_lock:
-            flash_attention_bwd.launches_dq += 1
+        kernel_launches.inc(tags={"kernel": "flash_attn_bwd_dq"})
 
     def dkv(self) -> None:
         err = self._lib.flash_attn_bwd_dkv(
@@ -453,8 +441,7 @@ class _BwdLaunch:
         )
         if err != 0:
             raise _launch_error("flash_attn_bwd_dkv", err)
-        with _count_lock:
-            flash_attention_bwd.launches_dkv += 1
+        kernel_launches.inc(tags={"kernel": "flash_attn_bwd_dkv"})
 
 
 def flash_attention_bwd(
@@ -486,11 +473,6 @@ def flash_attention_bwd(
     call.dq()
     call.dkv()
     return call.dq_out, call.dk_out, call.dv_out
-
-
-# Launches of B2 (dq) and B3 (dk/dv) made by this process.
-flash_attention_bwd.launches_dq = 0
-flash_attention_bwd.launches_dkv = 0
 
 
 class _FlashAttention(torch.autograd.Function):

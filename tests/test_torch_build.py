@@ -3,7 +3,7 @@ stand-in for nvcc: what the compiler printed (ptxas registers, shared memory
 and spills, which `chip_smoke.py` checks) stays readable when a later
 process finds the library already built and compiles nothing, and each
 library's first load in a process is one record and, with tracing on, one
-span."""
+span; a kernel launch is one count of the loader's counter."""
 
 import os
 import sys
@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 
 from ray_tpu_torch.ops.cuda import _build
-from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util import metrics, tracing
 
 
 @pytest.fixture
@@ -77,6 +77,22 @@ def test_a_first_load_is_one_span(nvcc):
         ("cuda::load_library", {"name": "k", "built": False}),
     ]
     assert spans[0]["end"] - spans[0]["start"] >= compile_s > 0.0
+
+
+def test_launches_are_one_counter_read_by_entry_point():
+    """A launch is one `inc` of the counter `cuda_kernel_launches`, tagged
+    by the kernel's C entry point: `launch_counts()` reads each series by
+    that name, the other series stay as they were, and the series is in
+    `util.metrics.collect()`, whose deltas the benchmark reads."""
+    before = _build.launch_counts()
+    for _ in range(3):
+        _build.kernel_launches.inc(tags={"kernel": "a_test_entry_point"})
+    after = _build.launch_counts()
+    assert after.pop("a_test_entry_point") - before.pop("a_test_entry_point", 0) == 3
+    assert after == before
+    rec = metrics.collect()["cuda_kernel_launches"]
+    assert rec["type"] == "Counter"
+    assert rec["data"][(("kernel", "a_test_entry_point"),)] >= 3
 
 
 # What ptxas prints of one kernel (-Xptxas -v), the nvcc stand-in below

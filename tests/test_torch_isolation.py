@@ -11,6 +11,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, init_params
+from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.parallel import MeshSpec, build_mesh, setup_mesh
 
@@ -144,29 +145,27 @@ def test_kernel_input_check_raises(dtype, d, bad):
 
 def test_wrapper_raises_on_devices_it_has_no_kernel_for():
     q = torch.empty((1, 64, 2, 128), dtype=torch.bfloat16, device="meta")
-    before = flash.flash_attention_fwd.launches
+    before = _build.launch_counts()
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash.flash_attention(q, q, q)
-    assert flash.flash_attention_fwd.launches == before
+    assert _build.launch_counts() == before
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
     q = torch.zeros((1, 16, 2, 64), requires_grad=True)
-    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-              flash.flash_attention_bwd.launches_dkv)
+    before = _build.launch_counts()
     flash.flash_attention(q, q, q).sum().backward()
     assert q.grad is not None
-    assert (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-            flash.flash_attention_bwd.launches_dkv) == before
+    assert _build.launch_counts() == before
 
 
 def test_backward_wrapper_raises_on_devices_it_has_no_kernel_for():
     q = torch.empty((1, 64, 2, 128), dtype=torch.bfloat16, device="meta")
     lse = torch.empty((1, 2, 64, 1), device="meta")
-    before = flash.flash_attention_bwd.launches_dq
+    before = _build.launch_counts()
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash.flash_attention_bwd(q, q, q, q, lse, q)
-    assert flash.flash_attention_bwd.launches_dq == before
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize("bad", ["lse_shape", "do_dtype", "o_shape"])

@@ -15,6 +15,7 @@ import torch
 
 from ray_tpu_torch.models import LMTrainContext, TransformerConfig, cross_entropy_loss, forward
 from ray_tpu_torch.models import transformer
+from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_schedule
 from ray_tpu_torch.parallel import pipeline_apply, pipeline_train_step_1f1b
@@ -36,6 +37,17 @@ ZERO_GRAD_FLOOR = 1e-3
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+# B1's, B2's and B3's C entry points, as `_build.launch_counts()` names them.
+FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+def _launched_since(before):
+    """Each kernel's launches since `before`, a `_build.launch_counts()`;
+    kernels not launched since are left out."""
+    return {k: n - before.get(k, 0) for k, n in _build.launch_counts().items()
+            if n != before.get(k, 0)}
 
 
 def _qkv(b, sq, h, kv, d, dtype, seed=0):
@@ -71,9 +83,9 @@ def test_flash_kernel_matches_plain_on_card(dtype, sq, kv, causal, d):
     q = torch.randn((2, sq, 16, d), generator=g, device="cuda").to(dtype)
     k = torch.randn((2, sq, kv, d), generator=g, device="cuda").to(dtype)
     v = torch.randn((2, sq, kv, d), generator=g, device="cuda").to(dtype)
-    before = flash.flash_attention_fwd.launches
+    before = _build.launch_counts()
     o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
-    assert flash.flash_attention_fwd.launches == before + 1
+    assert _launched_since(before) == {"flash_attn_fwd": 1}
     o_p, lse_p = flash.flash_attention_fwd_plain(q, k, v, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=0)
@@ -99,11 +111,10 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, b, sq, h, kv, d, causal):
     _need_card()
     q, k, v, do = _qkv(b, sq, h, kv, d, dtype)
     o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
-    before = (flash.flash_attention_bwd.launches_dq, flash.flash_attention_bwd.launches_dkv)
+    before = _build.launch_counts()
     grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
-    after = (flash.flash_attention_bwd.launches_dq, flash.flash_attention_bwd.launches_dkv)
-    assert after == (before[0] + 1, before[1] + 1)
+    assert _launched_since(before) == {"flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}
     plain = flash.flash_attention_bwd_plain(
         *(t.float() for t in (q, k, v, o)), lse, do.float(), causal=causal
     )
@@ -176,10 +187,10 @@ def test_gradients_flow_through_the_kernel_path():
     _need_card()
     q, k, v, do = _qkv(2, 512, 8, 2, 128, torch.bfloat16, seed=1)
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-    before = flash.flash_attention_bwd.launches_dq
+    before = _build.launch_counts()
     o = flash.flash_attention(q, k, v, causal=True)
     dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
-    assert flash.flash_attention_bwd.launches_dq == before + 1
+    assert _launched_since(before) == dict.fromkeys(FLASH, 1)
     with torch.no_grad():
         o_p, lse = flash.flash_attention_fwd_plain(q.float(), k.float(), v.float())
         plain = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o_p, lse, do.float())
@@ -215,9 +226,9 @@ def test_dispatcher_takes_kernel_on_aligned_card_shapes(sq, launched):
     from ray_tpu_torch.ops.attention import dot_product_attention
 
     q = torch.randn((1, sq, 4, 128), device="cuda", dtype=torch.bfloat16)
-    before = flash.flash_attention_fwd.launches
+    before = _build.launch_counts()
     dot_product_attention(q, q, q, causal=True)
-    assert flash.flash_attention_fwd.launches == before + launched
+    assert _launched_since(before).get("flash_attn_fwd", 0) == launched
 
 
 # A small bf16 model whose attention takes the kernels: head_dim 128.
@@ -246,13 +257,10 @@ def test_launch_counts_through_backward(remat, policy, fwd):
     _need_card()
     cfg = dataclasses.replace(SMALL, remat=remat, remat_policy=policy)
     _, state, tokens, targets = _small_state(cfg)
-    counts = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-              flash.flash_attention_bwd.launches_dkv)
+    before = _build.launch_counts()
     cross_entropy_loss(forward(state["params"], tokens, cfg), targets).backward()
     assert all(p.grad is not None for p in state["params"]["layers"]["attn"].values())
-    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-             flash.flash_attention_bwd.launches_dkv)
-    assert tuple(a - c for a, c in zip(after, counts)) == (fwd, 2, 2)
+    assert _launched_since(before) == dict(zip(FLASH, (fwd, 2, 2)))
 
 
 @pytest.mark.gpu
@@ -297,13 +305,10 @@ def test_ring_schedule_matches_whole_sequence_kernels():
     q, k, v, do = _qkv(2, 512, 4, 2, 128, torch.bfloat16, seed=7)
     o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
     whole = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-              flash.flash_attention_bwd.launches_dkv)
+    before = _build.launch_counts()
     ring_o, ring_lse, *ring_grads = ring_schedule(q, k, v, do, n=4, causal=True)
     torch.cuda.synchronize()
-    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-             flash.flash_attention_bwd.launches_dkv)
-    assert tuple(a - b for a, b in zip(after, before)) == (10, 10, 10)
+    assert _launched_since(before) == dict.fromkeys(FLASH, 10)
     assert ring_o.dtype == torch.bfloat16
     assert (ring_o.float() - o.float()).abs().max().item() <= RING_O_TOL
     assert (ring_lse - lse).abs().max().item() <= 1e-3
@@ -364,12 +369,9 @@ def test_pipeline_schedules_through_the_kernels(schedule, launches):
     stage 0's forward again in its backward slot (B1 4 x 2 x (1 + 2))."""
     _need_card()
     cfg = dataclasses.replace(SMALL, n_layers=4, remat=True, remat_policy="qkv_attn")
-    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-              flash.flash_attention_bwd.launches_dkv)
+    before = _build.launch_counts()
     loss, grads = _pipeline_run(cfg, schedule, 2, 4)
-    after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches_dq,
-             flash.flash_attention_bwd.launches_dkv)
-    assert tuple(a - b for a, b in zip(after, before)) == launches
+    assert _launched_since(before) == dict(zip(FLASH, launches))
     ref_loss, ref_grads = _pipeline_run(dataclasses.replace(cfg, attention_impl="reference"),
                                         schedule, 2, 4)
     assert abs(float(loss) - float(ref_loss)) <= PIPE_LOSS_TOL

@@ -333,8 +333,8 @@ PORT_SPANS = {
 # Metrics the port records in code that has no source, in the metric catalog
 # beside the source's ("<name> <Type>" lines), each with why.
 PORT_METRICS = {
-    "lm_optimizer_leaves Counter": "models/lm.py: leaves default_optimizer updated, by path "
-                                   "(the CUDA kernel or the plain chain)",
+    "cuda_kernel_launches Counter": "ops/cuda/_build.py: successful launches of the port's "
+                                    "hand-written CUDA kernels, by C entry point",
 }
 
 
