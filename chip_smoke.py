@@ -5,18 +5,19 @@
     python3 chip_smoke.py --forward-times   # only B1's times (main_forward_times)
     python3 chip_smoke.py --backward-times  # only B2's and B3's (main_backward_times)
     python3 chip_smoke.py --adamw-times     # only the clip + AdamW kernel's (main_adamw_times)
+    python3 chip_smoke.py --norm-times      # only the RMSNorm kernels' (main_norm_times)
 
 Phases, in order; any failure raises and the script exits nonzero without
 printing the final line:
 
 1. device and build: needs a CUDA card; prints the card's name and power
    limit (nvidia-smi) and builds the flash-attention forward and backward
-   kernels and the clip + AdamW kernel (A1) from ray_tpu_torch/csrc with
-   nvcc, one nvcc per source, started together; prints each kernel's
-   registers, shared memory and spills (ptxas) and, where the toolkit has
-   cuobjdump, its HGMMA (wgmma) and HMMA (mma.sync) instruction counts, and
-   fails if A1 or a bf16 attention kernel spills, or the latter (all three
-   run on wgmma) holds an mma.sync;
+   kernels, the clip + AdamW kernel (A1) and the RMSNorm kernels (N1) from
+   ray_tpu_torch/csrc with nvcc, one nvcc per source, started together;
+   prints each kernel's registers, shared memory and spills (ptxas) and,
+   where the toolkit has cuobjdump, its HGMMA (wgmma) and HMMA (mma.sync)
+   instruction counts, and fails if A1, N1 or a bf16 attention kernel
+   spills, or the latter (all three run on wgmma) holds an mma.sync;
 2. the forward kernels against their plain PyTorch version on the card
    (FWD_CASES: head_dim 128 and 64, S = 1 to 16384, batch 1 to 16, 4 to
    32 heads, GQA, causal and not, bf16 and f32, and every shape the later
@@ -29,7 +30,12 @@ printing the final line:
    InternLM2-1.8B's 12 leaves in f32 and bf16 (phase_adamw): two updates,
    under and over the clip, each output element against the plain chain in
    f64 on the same inputs (ADAMW_TERM_SHARE), and the times of the kernel,
-   the plain chain and the library's fused AdamW;
+   the plain chain and the library's fused AdamW; then N1 at [16384, 2048],
+   [16384, 4096] and [16384, 8192] in bf16 and f32 with f32 weights
+   (phase_norm): y, dx and dw through autograd, each element against f64
+   autograd (`cuda_rms_norm.f64_reference`), and the times of its forward
+   and backward beside their bounds, the plain expression's and the
+   library's torch.nn.functional.rms_norm's;
 3. the serving path at the full width of TransformerConfig.llama_1b (random
    weights from a seeded generator): 16 requests of 1024 tokens from 16
    threads through `@serve.batch(max_batch_size=8)`, the kernel's launch
@@ -197,8 +203,10 @@ printing the final line:
 Launches are counted as deltas of `_build.launch_counts()` (the counter
 `cuda_kernel_launches`, by C entry point) around the work, in the process
 that launches. Every training step whose launches are counted (phases 5,
-6, 8, 9, 12, 13 and 14) also holds A1 to one launch a leaf; the kernels
-line gives A1's count a step by path (ADAMW_LAUNCHES).
+6, 8, 9, 12, 13 and 14) also holds A1 to one launch a leaf and N1 to its
+launches a step (`norm_per_step`), and every counted serving forward N1 to
+its own (`norm_per_forward`); the kernels line gives A1's and N1's counts
+by path (ADAMW_LAUNCHES, NORM_LAUNCHES).
 
 Prints JSON lines of the serving and training numbers, the profiles, the
 pipeline and experts, the RL learners, the checkpoint, the trainer, the
@@ -243,6 +251,7 @@ from ray_tpu_torch.models import (
 )
 from ray_tpu_torch.models import lm, moe, transformer
 from ray_tpu_torch.ops.cuda import _build, adamw
+from ray_tpu_torch.ops.cuda import rms_norm as cuda_rms_norm
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 from ray_tpu_torch.ops.ring_attention import ring_schedule
 from ray_tpu_torch.parallel import (
@@ -744,6 +753,118 @@ def main_adamw_times() -> int:
     return 0
 
 
+# N1 at the rows of a [4, 4096] training batch and the decoder widths of the
+# benchmark's InternLM2-1.8B (2048), of a 7B (4096) and of a 70B (8192, two
+# vectors a thread).
+NORM_SHAPES = ((16384, 2048), (16384, 4096), (16384, 8192))
+NORM_EPS = 1e-5
+def norm_gaps(x, w, dy) -> dict:
+    """N1's y, dx and dw, through autograd as the decoder takes them,
+    against f64 autograd of x r T(w) on the same inputs: each output's
+    largest error as a share of its element's tolerance
+    (`cuda_rms_norm.f64_reference`, whose tolerances the card tests hold too;
+    `worst`, at most 1 to pass), and the same share of a value that leaves
+    out a term (y without the weight, dx without the mean's term: `seen`,
+    above 1 where the check can see the term)."""
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    since = _build.launch_counts()
+    y = transformer.rms_norm(xs, ws, NORM_EPS)
+    dx, dw = torch.autograd.grad(y, (xs, ws), dy)
+    got = norm_launches(since)
+    check(got == (1, 1, 1), f"N1: launches (fwd, bwd, dw) {got} for one forward and backward")
+    ref = cuda_rms_norm.f64_reference(x, w, dy, NORM_EPS)
+    worst = {k: ((ours.detach().double() - ref[k][0]).abs() / ref[k][1]).max().item()
+             for k, ours in (("y", y), ("dx", dx), ("dw", dw))}
+    r, xd, wd = ref["r"], x.double(), w.to(x.dtype).double()
+    seen = {"y": ((xd * r - ref["y"][0]).abs() / ref["y"][1]).max().item(),
+            "dx": ((r * dy.double() * wd - ref["dx"][0]).abs() / ref["dx"][1]).max().item()}
+    return {"worst": worst, "seen": seen}
+
+
+def norm_times(rows: int, d: int, dtype) -> dict:
+    """N1 at [rows, d] of `dtype` with an f32 weight (the decoder's masters):
+    checked by norm_gaps, then CUDA events around eager calls, as a step
+    waits for them: the forward without and with the saved rstd (`fwd_ms`,
+    `fwd_saved_ms`), the backward with dw (`bwd_ms`: rms_norm_bwd and
+    rms_norm_dw), and the forward and backward through autograd
+    (`fwd_bwd_ms`), and the host's time to issue the latter
+    (`host_fwd_bwd_us`); the same of the plain expression (`plain_*`) and of
+    the library's torch.nn.functional.rms_norm (`library_*`, a yardstick the
+    port never calls, its weight in x's type); each kernel's bound (x and y,
+    or x, dy and dx, each moved once, rstd and the weight besides, at the
+    card's peak bytes/s) and the bytes/s it reached."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + d)
+    x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
+    w = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+    dy = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
+    gaps = norm_gaps(x, w, dy)
+    print(f"N1 [{rows}, {d}] {dtype} against f64: {json.dumps(gaps)}", flush=True)
+    check(all(v <= 1 for v in gaps["worst"].values()),
+          f"N1 [{rows}, {d}] {dtype}: an output outside its tolerance: {gaps['worst']}")
+    check(all(v > 1 for v in gaps["seen"].values()),
+          f"N1 [{rows}, {d}] {dtype}: the check cannot see a term: {gaps['seen']}")
+    torch.cuda.empty_cache()
+    _, rstd = cuda_rms_norm._forward(x, w, NORM_EPS, save=True)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    es, n = x.element_size(), rows * d
+    fwd_bytes = 2 * n * es + d * 4
+    bwd_bytes = 3 * n * es + rows * 4 + 2 * d * 4
+    out = {"shape": [rows, d], "dtype": str(dtype), "weight_dtype": "torch.float32",
+           "checks": gaps, "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+           "fwd_bound_ms": bound(0.0, fwd_bytes, dtype)[0],
+           "bwd_bound_ms": bound(0.0, bwd_bytes, dtype)[0]}
+
+    def fwd_bwd(fn, *args):
+        return lambda: torch.autograd.grad(fn(xs, *args), (xs, ws), dy)
+
+    with torch.no_grad():
+        out["fwd_ms"] = time_ms(lambda: cuda_rms_norm._forward(x, w, NORM_EPS, False), iters=20)
+        out["fwd_saved_ms"] = time_ms(lambda: cuda_rms_norm._forward(x, w, NORM_EPS, True),
+                                      iters=20)
+        out["bwd_ms"] = time_ms(lambda: cuda_rms_norm._backward(x, w, dy, rstd, True, True),
+                                iters=20)
+        out["plain_fwd_ms"] = time_ms(lambda: transformer.rms_norm_plain(x, w, NORM_EPS),
+                                      iters=10)
+    out["fwd_bwd_ms"] = time_ms(fwd_bwd(transformer.rms_norm, ws, NORM_EPS), iters=20)
+    out["plain_fwd_bwd_ms"] = time_ms(fwd_bwd(transformer.rms_norm_plain, ws, NORM_EPS),
+                                      iters=10)
+    out["host_fwd_bwd_us"] = host_us(fwd_bwd(transformer.rms_norm, ws, NORM_EPS), iters=20)
+    out["plain_host_fwd_bwd_us"] = host_us(fwd_bwd(transformer.rms_norm_plain, ws, NORM_EPS),
+                                           iters=20)
+    library, w_x = torch.nn.functional.rms_norm, ws.detach().to(dtype).requires_grad_(True)
+    with torch.no_grad():
+        out["library_fwd_ms"] = time_ms(lambda: library(x, (d,), w_x, NORM_EPS), iters=10)
+    out["library_fwd_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(library(xs, (d,), w_x, NORM_EPS), (xs, w_x), dy), iters=10)
+    for k in ("fwd", "bwd"):
+        out[f"{k}_bytes_per_s"] = out[f"{k}_bytes"] / out[f"{k}_ms"] * 1e3
+        out[f"{k}_share"] = out[f"{k}_bound_ms"] / out[f"{k}_ms"]
+    print(f"N1 [{rows}, {d}] {dtype} times: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_norm() -> dict:
+    """N1 checked and timed (norm_times) at NORM_SHAPES in bf16 (the
+    decoder's activations) and f32."""
+    times = {}
+    for rows, d in NORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            times[f"{rows}x{d}_{str(dtype)[6:]}"] = norm_times(rows, d, dtype)
+            torch.cuda.empty_cache()
+    return times
+
+
+def main_norm_times() -> int:
+    """`python3 chip_smoke.py --norm-times`: phase_norm, and nothing else,
+    for the `ray_tpu_torch` beside this script."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    print(json.dumps({"norm_times": phase_norm()}), flush=True)
+    return 0
+
+
 def check_fwd_case(g, name, b, s, h, hkv, d, dtype, causal) -> tuple:
     """B1 against its plain version at one shape, from random inputs;
     returns the largest error in o and the inputs."""
@@ -846,6 +967,7 @@ def phase_serving(card: str) -> tuple:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
     launches = launch_counts(since)
+    NORM_LAUNCHES["serving"] = norm_launches(since)
     check(not errors, f"request failed: {errors[:1]!r}")
     check(not any(t.is_alive() for t in threads), "a request did not finish")
     check(all(isinstance(o, int) and 0 <= o < cfg.vocab_size for o in outs), "bad answers")
@@ -855,6 +977,8 @@ def phase_serving(card: str) -> tuple:
     check(launches == (cfg.n_layers * n_batches, 0, 0),
           f"flash kernels launched {launches} times for {n_batches} batches "
           f"of {cfg.n_layers} layers")
+    check(NORM_LAUNCHES["serving"] == norm_per_forward(cfg, n_batches),
+          f"RMSNorm kernels launched {NORM_LAUNCHES['serving']} times for {n_batches} batches")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # One batch again with the plain reference attention.
@@ -1120,20 +1244,62 @@ LM_LEAVES = 12
 # A1's launches in one step of each training path, as that path's own run
 # counted them.
 ADAMW_LAUNCHES = {}
+# N1's C entry points, as `_build.launch_counts()` names them: the RMSNorm
+# forward, its backward and the backward's dw reduction.
+NORM_KEYS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dw")
+# N1's launches (forward, backward, dw) in a step, a batch or a phase of
+# each path, as that path's own run counted them.
+NORM_LAUNCHES = {}
+
+
+def norm_launches(since: dict) -> tuple:
+    """N1's launches in this process since `since`, as `launch_counts`."""
+    now = _build.launch_counts()
+    return tuple(now.get(k, 0) - since.get(k, 0) for k in NORM_KEYS)
+
+
+def norm_per_step(cfg: TransformerConfig) -> tuple:
+    """N1's launches in one unpipelined training step of `cfg`: two norms a
+    layer and the final one forward, a layer's two again where remat reruns
+    its segments in the backward; one backward and one dw reduction each."""
+    L = cfg.n_layers
+    return ((4 if cfg.remat else 2) * L + 1, 2 * L + 1, 2 * L + 1)
+
+
+def norm_per_forward(cfg: TransformerConfig, forwards: int = 1) -> tuple:
+    """N1's launches in `forwards` forwards of `cfg` without autograd."""
+    return ((2 * cfg.n_layers + 1) * forwards, 0, 0)
+
+
+def norm_per_pipeline(cfg: TransformerConfig, schedule: str, m: int, layer_fwds: int) -> tuple:
+    """N1's launches in one pipelined forward and backward of `cfg`'s
+    layers over `m` microbatches (`_loss_and_grads`), where the layers'
+    forwards ran `layer_fwds` times (B1's count): two norms a layer each
+    time, two a layer a microbatch again where remat reruns its segments;
+    a backward and a dw each for a layer's two a microbatch; the head's
+    final norm once (GPipe) or once a microbatch (1F1B)."""
+    layers = 2 * m * cfg.n_layers
+    heads = m if schedule == "1f1b" else 1
+    return (2 * layer_fwds + (layers if cfg.remat else 0) + heads,) + (layers + heads,) * 2
 
 
 def counted_step(ctx, state, batch, expect: tuple, what: str, path: str = None):
     """One train step with the kernels' launches counted around it: B1-B3
-    against `expect`, A1 once a leaf; A1's count recorded under `path` in
-    ADAMW_LAUNCHES where one is given."""
+    against `expect`, A1 once a leaf, N1 as `norm_per_step`; A1's and N1's
+    counts recorded under `path` in ADAMW_LAUNCHES and NORM_LAUNCHES where
+    one is given."""
     leaves = len(state["opt_state"]["mu"])
     since = _build.launch_counts()
     state, metrics = ctx.train_step(state, batch)
-    got, got_adamw = launch_counts(since), adamw_launches(since)
+    got, got_adamw, got_norm = launch_counts(since), adamw_launches(since), norm_launches(since)
     check(got == expect, f"{what}: launches (fwd, dq, dkv) = {got}, expected {expect}")
     check(got_adamw == leaves, f"{what}: {got_adamw} clip + AdamW launches for {leaves} leaves")
+    norm_expect = norm_per_step(ctx.config)
+    check(got_norm == norm_expect,
+          f"{what}: RMSNorm launches (fwd, bwd, dw) = {got_norm}, expected {norm_expect}")
     if path is not None:
         ADAMW_LAUNCHES[path] = got_adamw
+        NORM_LAUNCHES[path] = got_norm
     return state, metrics
 
 
@@ -1287,6 +1453,7 @@ def ring_schedule_check(name, b, h, hkv, g) -> tuple:
     ring_o, ring_lse, *ring_grads = ring_schedule(q, k, v, do, n=RING_N, causal=True)
     torch.cuda.synchronize()
     launches = launch_counts(since)
+    NORM_LAUNCHES.setdefault("ring_schedule", norm_launches(since))
     f32 = [t.float() for t in (q, k, v, do)]
     o_p, lse_p = flash.flash_attention_fwd_plain(*f32[:3], causal=True)
     plain = flash.flash_attention_bwd_plain(*f32[:3], o_p, lse_p, f32[3], causal=True)
@@ -1551,10 +1718,12 @@ def pipeline_schedules() -> tuple:
         for m in PP_MICROBATCHES:
             expect = ((m * L // PP_STAGES * (2 * PP_STAGES - 1)) if schedule == "1f1b"
                       else m * L, m * L, m * L)
+            norm_expect = norm_per_pipeline(cfg, schedule, m, expect[0])
             run = lambda: _loss_and_grads(cfg, params, batch, schedule, m)  # noqa: E731
             since = _build.launch_counts()
             (loss, grads), _, peak, _ = _timed_run(run)
-            got = launch_counts(since)
+            got, got_norm = launch_counts(since), norm_launches(since)
+            NORM_LAUNCHES.setdefault(f"pipeline_{schedule}", got_norm)
             _, secs, _, issued = _timed_run(run)
             loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
             norm_rel = abs(_grad_norm(grads) - ref_norm) / ref_norm
@@ -1570,6 +1739,9 @@ def pipeline_schedules() -> tuple:
             out[f"{schedule}_m{m}"] = row
             if got != expect:
                 bad.append(f"{schedule} M={m}: launches {got}, expected {expect}")
+            if got_norm != norm_expect:
+                bad.append(f"{schedule} M={m}: RMSNorm launches (fwd, bwd, dw) {got_norm}, "
+                           f"expected {norm_expect}")
             if not (loss_rel <= PP_LOSS_RTOL and norm_rel <= PP_GRAD_RTOL
                     and max(stage_rel) <= PP_GRAD_RTOL):
                 bad.append(f"{schedule} M={m}: loss {loss_rel:.2e}, grad norm {norm_rel:.2e}, "
@@ -2152,6 +2324,7 @@ def trainer_loop(config: dict) -> None:
                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                   "step_s": step_s, "launches": [fwd, dq, dkv],
                   "adamw_launches": adamw_launches(since),
+                  "norm_launches": list(norm_launches(since)),
                   "peak_bytes": torch.cuda.max_memory_allocated()}
         ckpt = None
         if step == TRAINER_CKPT_STEP:
@@ -2238,7 +2411,10 @@ def phase_runtime_trainer(card: str, training: dict) -> tuple:
                   f"trainer: attempt {r['attempt']} step {r['step']} launches {r['launches']}")
             check(r["adamw_launches"] == LM_LEAVES, f"trainer: attempt {r['attempt']} step "
                   f"{r['step']}: {r['adamw_launches']} clip + AdamW launches")
+            check(r["norm_launches"] == list(norm_per_step(cfg)), f"trainer: attempt "
+                  f"{r['attempt']} step {r['step']}: RMSNorm launches {r['norm_launches']}")
         ADAMW_LAUNCHES["trainer_worker_step"] = reports[0]["adamw_launches"]
+        NORM_LAUNCHES["trainer_worker_step"] = tuple(reports[0]["norm_launches"])
         first, resumed = hist[0], hist[2]
         for r in (first, resumed):
             check(r["foreign_modules"] == [],
@@ -2405,7 +2581,7 @@ class LMDeployment:
             batches, self.batches = self.batches, []
             return {"device": torch.cuda.get_device_name(),
                     "launches": launch_counts(self.since),
-                    "batches": batches, "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "norm_launches": norm_launches(self.since), "batches": batches, "peak_bytes": torch.cuda.max_memory_allocated(),
                     "foreign_modules": foreign_modules(), "build_s": kernel_builds(),
                     "start_s": self.start_s, "gpu_ids": ray_tpu_torch.get_gpu_ids(),
                     "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
@@ -2440,6 +2616,7 @@ class LMPredictor(Predictor):
         out = {"id": np.asarray(batch["id"]), "token": last.argmax(-1).cpu().numpy(),
                "logits": last.cpu().numpy(), "batch": np.full(n, self.batches),
                **{k: np.full(n, c) for k, c in zip(LAUNCH_KEYS, launch_counts(self.since))},
+               **{k: np.full(n, c) for k, c in zip(NORM_KEYS, norm_launches(self.since))},
                "load_s": np.full(n, self.load_s),
                "foreign": np.full(n, len(foreign_modules())),
                "gpu_ids": np.full(n, ",".join(map(str, ray_tpu_torch.get_gpu_ids()))),
@@ -2529,7 +2706,8 @@ def replica_run(handle, send, prompts, logits: bool, n_layers: int, what: str) -
     first calls through the proxy and the router): this process's and the
     replica's B1-B3 counts taken just before the run and just after;
     the replica must have launched B1 once a layer a batch and B2, B3
-    never, and this process none of them."""
+    never, N1's forward twice a layer and once more a batch, and this
+    process none of them."""
     warmup_wall = concurrent_requests(send, prompts[:MAX_BATCH], logits)[2]
     warmup_sizes = ray_tpu_torch.get(handle.reset.remote(), timeout=SERVE_TIMEOUT)
     since = _build.launch_counts()
@@ -2541,6 +2719,9 @@ def replica_run(handle, send, prompts, logits: bool, n_layers: int, what: str) -
     check(tuple(stats["launches"]) == (n_layers * len(batches), 0, 0),
           f"{what}: the replica launched B1-B3 {stats['launches']} times for {len(batches)} "
           f"batches of {n_layers} layers")
+    check(tuple(stats["norm_launches"]) == ((2 * n_layers + 1) * len(batches), 0, 0),
+          f"{what}: the replica launched N1 {stats['norm_launches']} times for {len(batches)} "
+          f"batches of {n_layers} layers")
     check(sum(b["size"] for b in batches) == len(prompts),
           f"{what}: batch sizes {[b['size'] for b in batches]}")
     return outs, {"latency_s_median": float(np.median(lat)), "latency_s_max": max(lat),
@@ -2550,6 +2731,7 @@ def replica_run(handle, send, prompts, logits: bool, n_layers: int, what: str) -
                   "batch_card_wait_s": [b["card_wait_s"] for b in batches],
                   "warmup_wall_s": warmup_wall, "warmup_batch_sizes": warmup_sizes,
                   "replica_launches": list(stats["launches"]),
+                  "replica_norm_launches": list(stats["norm_launches"]),
                   "peak_mem_gb": stats["peak_bytes"] / 1e9}, stats
 
 
@@ -2649,6 +2831,8 @@ def phase_serve_stack(card: str, serving: dict) -> tuple:
     check(pred_ids == ["0"] and pred_visible == [visible_card(0)],
           f"batch predictor: the actor holds card ids {pred_ids}, sees {pred_visible}")
     launches_c = tuple(int(rows[k].max()) for k in LAUNCH_KEYS)
+    norm_c = tuple(int(rows[k].max()) for k in NORM_KEYS)
+    check(norm_c == norm_per_forward(cfg, 2), f"batch predictor: N1 launches {norm_c}")
     fwd_counts = sorted(set(rows[LAUNCH_KEYS[0]].tolist()))
     check(launches_c == (cfg.n_layers * 2, 0, 0) and fwd_counts == [cfg.n_layers, 2 * cfg.n_layers],
           f"batch predictor: launches {fwd_counts}, B2/B3 "
@@ -2706,6 +2890,8 @@ def phase_serve_stack(card: str, serving: dict) -> tuple:
           f"(CUDA_VISIBLE_DEVICES={stats_a['cuda_visible_devices']}), predictor actor "
           f"{pred_ids} ({pred_visible})", flush=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    NORM_LAUNCHES.update(serve_stack=tuple(stats_a["norm_launches"]),
+                         serve_stack_http=tuple(stats_b["norm_launches"]), batch_predictor=norm_c)
     return out, {"serve_stack": tuple(stats_a["launches"]),
                  "serve_stack_http": tuple(stats_b["launches"]), "batch_predictor": launches_c}
 
@@ -2944,6 +3130,9 @@ def phase_rl_algorithms(card: str, phase8: dict) -> tuple:
         ray_tpu_torch.shutdown()
     launches = launch_counts(since)
     check(launches == (0, 0, 0), f"rl algorithms: B1-B3 launched {launches} times")
+    NORM_LAUNCHES["rl_algorithms"] = norm_launches(since)
+    check(NORM_LAUNCHES["rl_algorithms"] == (0, 0, 0),
+          f"rl algorithms: N1 launched {NORM_LAUNCHES['rl_algorithms']} times")
     out["launches"] = list(launches)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 11: {out['seconds']:.1f} s", flush=True)
@@ -3004,6 +3193,7 @@ def tune_trainer_loop(config: dict) -> None:
         train.report({**(start if step == 1 else {}), "step": step, "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]), "launches": launches,
                       "adamw_launches": adamw_launches(since),
+                      "norm_launches": list(norm_launches(since)),
                       "started_at": started_at, "reported_at": time.time()})
 
 
@@ -3042,7 +3232,7 @@ def tune_function_trainable(config: dict) -> None:
         tune.report({**(start if step == first else {"attempt": attempt}), "step": step,
                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "launches": launches, "adamw_launches": adamw_launches(since),
-                     "reported_at": time.time()},
+                     "norm_launches": list(norm_launches(since)), "reported_at": time.time()},
                     checkpoint=Checkpoint.from_torch_state(state))
         if attempt == 1 and step == TUNE_FN_FAIL_STEP:
             deadline = time.monotonic() + TUNE_TIMEOUT
@@ -3141,7 +3331,10 @@ def tuner_over_trainer(training: dict, storage: str) -> dict:
                   f"{r['launches']}")
             check(r["adamw_launches"] == LM_LEAVES, f"tune: lr {lr} step {r['step']}: "
                   f"{r['adamw_launches']} clip + AdamW launches")
+            check(r["norm_launches"] == list(norm_per_step(bench_config())),
+                  f"tune: lr {lr} step {r['step']}: RMSNorm launches {r['norm_launches']}")
         ADAMW_LAUNCHES["tune_trainer_trial"] = h[0]["adamw_launches"]
+        NORM_LAUNCHES["tune_trainer_trial"] = tuple(h[0]["norm_launches"])
     # Phase 5's rate equals phase 5's steps; the other equals its first step
     # (the loss and gradient before any update) and differs from the second.
     base, other = hist[TUNE_LRS[0]], hist[TUNE_LRS[1]]
@@ -3221,7 +3414,10 @@ def function_trial_with_retry(storage: str) -> dict:
               f"{r['step']} launches {r['launches']}")
         check(r["adamw_launches"] == LM_LEAVES, f"tune: function trial attempt "
               f"{r['attempt']} step {r['step']}: {r['adamw_launches']} clip + AdamW launches")
+        check(r["norm_launches"] == list(norm_per_step(cfg)), f"tune: function trial attempt "
+              f"{r['attempt']} step {r['step']}: RMSNorm launches {r['norm_launches']}")
     ADAMW_LAUNCHES["tune_function_trial"] = hist[0]["adamw_launches"]
+    NORM_LAUNCHES["tune_function_trial"] = tuple(hist[0]["norm_launches"])
     # The same steps unbroken, in this process.
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)
@@ -3404,7 +3600,7 @@ def cluster_job_train(steps: str) -> int:
     ctx = LMTrainContext(cfg)
     state = ctx.init_state(SEED)
     batch = train_batch(cfg)
-    losses, grad_norms, launches, adamw_counts, done_at = [], [], [], [], []
+    losses, grad_norms, launches, adamw_counts, norm_counts, done_at = [], [], [], [], [], []
     for _ in range(int(steps)):
         since = _build.launch_counts()
         state, m = ctx.train_step(state, batch)
@@ -3413,10 +3609,11 @@ def cluster_job_train(steps: str) -> int:
         done_at.append(time.time())
         launches.append(list(launch_counts(since)))
         adamw_counts.append(adamw_launches(since))
+        norm_counts.append(list(norm_launches(since)))
     print(json.dumps({"cluster_job": {
         "device": torch.cuda.get_device_name(0), "pid": os.getpid(), "entered_at": entered,
         "losses": losses, "grad_norms": grad_norms, "launches": launches,
-        "adamw_launches": adamw_counts,
+        "adamw_launches": adamw_counts, "norm_launches": norm_counts,
         "step_done_at": done_at, "build_s": kernel_builds(),
         "foreign_modules": foreign_modules()}}), flush=True)
     return 0
@@ -3449,7 +3646,8 @@ def cluster_batch() -> dict:
     with torch.no_grad():
         last = forward(params, toks, cfg)[:, -1, :]
     launches = launch_counts(since)
-    return {"logits": last.cpu().numpy(), "launches": launches, "done_at": time.time(),
+    return {"logits": last.cpu().numpy(), "launches": launches,
+            "norm_launches": norm_launches(since), "done_at": time.time(),
             "device": torch.cuda.get_device_name(0), "pid": os.getpid(),
             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
@@ -3529,11 +3727,13 @@ def cluster_autoscaled_driver(out: str) -> int:
 
 def check_batch(what: str, res: dict, phase3_batch: np.ndarray) -> None:
     """A num_gpus=1 task's batch: phase 3's logits bit for bit, B1 once a
-    layer and B2, B3 never, card id 0, nothing of the JAX package, and the
-    kernels loaded as phase 1 built them."""
-    n_layers = TransformerConfig.llama_1b().n_layers
+    layer and B2, B3 never, N1 as one forward, card id 0, nothing of the JAX
+    package, and the kernels loaded as phase 1 built them."""
+    cfg = TransformerConfig.llama_1b()
     check(res["device"] == torch.cuda.get_device_name(0), f"{what}: the task ran on {res['device']}")
-    check(tuple(res["launches"]) == (n_layers, 0, 0), f"{what}: launches {res['launches']}")
+    check(tuple(res["launches"]) == (cfg.n_layers, 0, 0), f"{what}: launches {res['launches']}")
+    check(tuple(res["norm_launches"]) == norm_per_forward(cfg),
+          f"{what}: N1 launches {res['norm_launches']}")
     check(np.array_equal(res["logits"], phase3_batch),
           f"{what}: logits differ from phase 3's batch (max |diff| "
           f"{np.abs(res['logits'] - phase3_batch).max():.3e})")
@@ -3567,6 +3767,9 @@ def cluster_jobs(training: dict, workdir: str) -> tuple:
     check(rec["adamw_launches"] == [LM_LEAVES] * n,
           f"job: clip + AdamW launches {rec['adamw_launches']}")
     ADAMW_LAUNCHES["cluster_job_step"] = rec["adamw_launches"][0]
+    check(rec["norm_launches"] == [list(norm_per_step(bench_config()))] * n,
+          f"job: RMSNorm launches {rec['norm_launches']}")
+    NORM_LAUNCHES["cluster_job_step"] = tuple(rec["norm_launches"][0])
     check(rec["device"] == torch.cuda.get_device_name(0), f"job: ran on {rec['device']}")
     check(rec["foreign_modules"] == [], f"job: loaded {rec['foreign_modules']}")
     check(set(rec["build_s"].values()) <= {0.0}, f"job: built the kernels again: {rec['build_s']}")
@@ -3650,7 +3853,8 @@ def cluster_head(workdir: str, phase3_batch: np.ndarray) -> dict:
     return {"start_s": start_s, "attach_s": res["attach_s"], "first_gpu_task_s": res["task_s"],
             "driver_process_s": driver_s, "status_resources": status["resources"],
             "stop_to_off_the_card_s": stop_s, "off_the_card_s": gone_s,
-            "launches": list(res["launches"]), "gpu_ids": res["gpu_ids"]}
+            "launches": list(res["launches"]), "norm_launches": list(res["norm_launches"]),
+            "gpu_ids": res["gpu_ids"]}
 
 
 def cluster_autoscaled(workdir: str, phase3_batch: np.ndarray) -> dict:
@@ -3666,9 +3870,9 @@ def cluster_autoscaled(workdir: str, phase3_batch: np.ndarray) -> dict:
     check_batch("autoscaled node", res, phase3_batch)
     check(res["node_resources"] == {"CPU": 2.0, "GPU": 1.0}, f"autoscaler: node {res['node_resources']}")
     check("GPU" not in res["resources_after"], f"autoscaler: after {res['resources_after']}")
-    return {k: res[k] for k in ("head_resources", "node_resources", "demand_to_node_s",
-                                "node_to_result_s", "result_to_terminated_s", "worker_gone_s",
-                                "launches", "gpu_ids")} | {"driver_process_s": driver_s}
+    keys = ("head_resources", "node_resources", "demand_to_node_s", "node_to_result_s",
+            "result_to_terminated_s", "worker_gone_s", "launches", "norm_launches", "gpu_ids")
+    return {k: res[k] for k in keys} | {"driver_process_s": driver_s}
 
 
 RAY_PERF_BENCHES = ("single_client_tasks_sync", "single_client_tasks_async",
@@ -3735,6 +3939,8 @@ def phase_cluster(card: str, training: dict, phase3_batch: np.ndarray) -> tuple:
     print("ray_perf: " + ", ".join(f"{k} {v}" for k, v in perf["median"].items())
           + " (median ops/s; GB/s for the put bench)", flush=True)
     print(f"phase 13: {out['seconds']:.1f} s", flush=True)
+    NORM_LAUNCHES.update(cluster_attached_batch=tuple(head["norm_launches"]),
+                         cluster_autoscaled_batch=tuple(autoscaled["norm_launches"]))
     launches = {"cluster_job_step": job_launches,
                 "cluster_attached_batch": tuple(head["launches"]),
                 "cluster_autoscaled_batch": tuple(autoscaled["launches"])}
@@ -3907,27 +4113,41 @@ def phase_drivers(card: str, g) -> tuple:
 
 
 LIBRARIES = {"flash_attn_fwd": flash.SOURCE, "flash_attn_bwd": flash.BWD_SOURCE,
-             "adamw": adamw.SOURCE}
+             "adamw": adamw.SOURCE, "rms_norm": cuda_rms_norm.SOURCE}
 # A1's instantiations, which must spill nothing either.
 ADAMW_LABELS = ("adamw_kernel<float>", "adamw_kernel<__nv_bfloat16>")
+# N1's instantiations (x's type, the weight's, the vectors of a row a
+# thread holds), which must spill nothing either.
+NORM_LABELS = tuple(
+    f"rms_norm_{k}_kernel<{x}, {w}, {v}>" for k in ("fwd", "bwd")
+    for x in ("__nv_bfloat16", "float") for w in ("__nv_bfloat16", "float") for v in (1, 2)
+) + ("rms_norm_dw_kernel<__nv_bfloat16>", "rms_norm_dw_kernel<float>")
 # Every bf16 kernel must run on wgmma (HGMMA in SASS), not mma.sync (HMMA),
 # and spill nothing.
 WGMMA_KERNELS = tuple(KERNEL_MARKERS.values())
+
+
+# A template argument in a mangled symbol: an int literal, float, bf16, or a
+# substitution (S<n>_), which in these kernels' symbols stands only for a
+# bf16 named before it.
+_TEMPLATE_ARG = r"Li(\d+)E|(f)|13(__nv_bfloat16)|(S\d*_)"
 
 
 def _kernel_label(symbol: str) -> str:
     """`fwd_wgmma_kernel<128>` from a mangled symbol such as
     _ZN50_GLOBAL__N__..._cu_cd4330bb16fwd_wgmma_kernelILi128EEEvNS_9TmaParamsE:
     the name is the length-prefixed identifier followed by its template
-    argument."""
+    arguments (`rms_norm_fwd_kernel<__nv_bfloat16, float>` from
+    ...19rms_norm_fwd_kernelI13__nv_bfloat16fEEvPKT_...)."""
     for m in re.finditer(r"\d+", symbol):
         for i in range(len(m.group())):  # a hash's digits may run into the length
             n = int(m.group()[i:])
             name = symbol[m.end():m.end() + n]
-            arg = re.match(r"I(?:Li(\d+)|(f)|13(__nv_bfloat16))E", symbol[m.end() + n:])
-            if name.endswith("_kernel") and arg:
-                value = arg.group(1) or arg.group(3) or "float"
-                return f"{name}<{value}>"
+            args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", symbol[m.end() + n:])
+            if name.endswith("_kernel") and args:
+                values = [a[0] or ("float" if a[1] else "__nv_bfloat16")
+                          for a in re.findall(_TEMPLATE_ARG, args.group(1))]
+                return f"{name}<{', '.join(values)}>"
     return symbol
 
 
@@ -4030,7 +4250,7 @@ def build_kernels() -> dict:
     for label in sorted(ptxas):
         print(f"ptxas: {label}: {json.dumps(ptxas[label])}"
               + (f" sass: {json.dumps(sass[label])}" if label in sass else ""), flush=True)
-    for label in ADAMW_LABELS:
+    for label in ADAMW_LABELS + NORM_LABELS:
         check(ptxas[label].get("spill_stores") == 0 and ptxas[label].get("spill_loads") == 0,
               f"{label} spills: {ptxas[label]}")
     for kernel in WGMMA_KERNELS:
@@ -4071,6 +4291,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     adamw_timing = phase_adamw()
     print(json.dumps({"adamw_times": adamw_timing}), flush=True)
+    norm_timing = phase_norm()
+    print(json.dumps({"norm_times": norm_timing}), flush=True)
     lap("2")
 
     serving, serve_launches, phase3_batch = phase_serving(card)
@@ -4224,6 +4446,21 @@ def main() -> int:
          "launches": ADAMW_LAUNCHES["train_step"], "launches_by_path": dict(ADAMW_LAUNCHES),
          **adamw_timing,
          "compiled": {label: compiled["ptxas"][label] for label in ADAMW_LABELS}})
+    kernels.append(
+        {"name": "rms_norm", "route": "cuda", "source": source + cuda_rms_norm.SOURCE,
+         "replaces": "none: the JAX package leaves the norm to XLA's fusion",
+         "design": "rms_norm_fwd_kernel and rms_norm_bwd_kernel: persistent grids of row "
+                   "groups, a row's threads (a power of two below 32, else a multiple of 32 "
+                   "up to 512) one 16-byte vector of it each (two past d = 4096, up to "
+                   "8192), kept in registers, the next "
+                   "row's loads issued before this row's f32 reduction (warp shuffles, shared "
+                   "memory), the weight read once and rounded in registers; the backward's dw "
+                   "terms in f32 registers, written as [groups, d] partials that "
+                   "rms_norm_dw_kernel sums in a fixed order",
+         "launches": NORM_LAUNCHES["train_step"],
+         "launches_by_path": {k: dict(zip(NORM_KEYS, v)) for k, v in NORM_LAUNCHES.items()},
+         **norm_timing,
+         "compiled": {label: compiled["ptxas"][label] for label in NORM_LABELS}})
     print(f"card: {card}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s; by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
@@ -4236,5 +4473,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--forward-times": main_forward_times, "--backward-times": main_backward_times,
-             "--adamw-times": main_adamw_times}
+             "--adamw-times": main_adamw_times, "--norm-times": main_norm_times}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

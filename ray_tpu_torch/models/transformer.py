@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.cuda import rms_norm as cuda_rms_norm
 from ray_tpu_torch.ops.ring_attention import ring_attention, select_kv_heads
 from ray_tpu_torch.ops.rotary import apply_rope
 from ray_tpu_torch.parallel.collectives import copy_to, gather_from, gather_shards, reduce_from
@@ -226,6 +227,15 @@ def init_params(
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of x's last dim: on a CUDA tensor the hand-written kernels
+    (`ops/cuda/rms_norm.py`, which raise on a layout they cannot take),
+    elsewhere `rms_norm_plain`; both round where the JAX package does."""
+    if x.is_cuda:
+        return cuda_rms_norm.rms_norm(x, weight, eps)
+    return rms_norm_plain(x, weight, eps)
+
+
+def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)

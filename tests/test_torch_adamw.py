@@ -362,7 +362,8 @@ def test_a_leaf_the_kernel_cannot_take_raises_on_card():
 @pytest.mark.gpu
 def test_train_step_on_card_takes_the_kernel():
     """A step of LMTrainContext on the card updates each of its 12 leaves
-    by one launch of adamw_update, and launches no other kernel (the tiny
+    by one launch of adamw_update, and launches no other kernel but the
+    RMSNorm's, five of each (two norms a layer and the final one; the tiny
     configuration's attention is not the flash kernels')."""
     _need_card()
     ctx = LMTrainContext(TransformerConfig.tiny())
@@ -371,4 +372,5 @@ def test_train_step_on_card_takes_the_kernel():
     before = _build.launch_counts()
     state, m = ctx.train_step(state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
     assert math.isfinite(float(m["loss"]))
-    assert _launched_since(before) == {"adamw_update": 12}
+    assert _launched_since(before) == {"adamw_update": 12, "rms_norm_fwd": 5,
+                                       "rms_norm_bwd": 5, "rms_norm_dw": 5}

@@ -112,19 +112,27 @@ def test_chip_smoke_reads_the_load_records(nvcc, tmp_path, monkeypatch, found_bu
     the cluster job and the cluster batch report), ptxas's registers,
     shared memory and spills from the log beside the library, and the
     tensor-core instructions in the SASS of the library file loaded, for
-    the attention kernels at both head dims and the clip + AdamW kernel in
-    f32 and bf16; a later process that finds the libraries built reports
-    the same."""
+    the attention kernels at both head dims, the clip + AdamW kernel in f32
+    and bf16 and the RMSNorm kernels at each pair of types and vector count
+    (labels read from templates of several arguments); a later process that
+    finds the libraries built reports the same."""
     import chip_smoke
     from ray_tpu_torch.ops.cuda import adamw
     from ray_tpu_torch.ops.cuda import flash_attention as flash
+    from ray_tpu_torch.ops.cuda import rms_norm
 
-    # Each source's kernels and the mangled template argument of each of
+    # Each source's kernels and the mangled template arguments of each of
     # their instantiations, one line a kernel.
     dims = ("Li64", "Li128")
+    floats = ("13__nv_bfloat16", "f")
+    # <bf16, bf16, V> mangles its second bf16 as a substitution, S1_.
+    norm = tuple(f"{types}Li{v}E" for types in ("13__nv_bfloat16S1_", "13__nv_bfloat16f",
+                                                 "f13__nv_bfloat16", "ff") for v in (1, 2))
     kernels = {flash.SOURCE: {"fwd_wgmma_kernel": dims},
                flash.BWD_SOURCE: {"dq_wgmma_kernel": dims, "dkv_wgmma_kernel": dims},
-               adamw.SOURCE: {"adamw_kernel": ("f", "13__nv_bfloat16")}}
+               adamw.SOURCE: {"adamw_kernel": ("f", "13__nv_bfloat16")},
+               rms_norm.SOURCE: {"rms_norm_fwd_kernel": norm, "rms_norm_bwd_kernel": norm,
+                                 "rms_norm_dw_kernel": floats}}
     for source, names in kernels.items():
         (_build.CSRC_DIR / source).write_text(
             "".join(f"{n} {' '.join(args)}\n" for n, args in names.items()))
@@ -169,7 +177,7 @@ def test_chip_smoke_reads_the_load_records(nvcc, tmp_path, monkeypatch, found_bu
     assert set(builds) == set(chip_smoke.LIBRARIES)
     assert all((s == 0.0) if found_built else (s > 0.0) for s in builds.values())
     labels = ({f"{n}<{d}>" for n in chip_smoke.KERNEL_MARKERS.values() for d in (64, 128)}
-              | set(chip_smoke.ADAMW_LABELS))
+              | set(chip_smoke.ADAMW_LABELS) | set(chip_smoke.NORM_LABELS))
     assert set(report["ptxas"]) == set(report["sass"]) == labels
     for d in (64, 128):
         assert report["ptxas"][f"fwd_wgmma_kernel<{d}>"] == {

@@ -253,14 +253,17 @@ def _small_state(cfg):
 )
 def test_launch_counts_through_backward(remat, policy, fwd):
     """One loss.backward() of a 2-layer model: B2 and B3 once per layer; B1
-    once per layer, twice where the policy reruns attention's forward."""
+    once per layer, twice where the policy reruns attention's forward; the
+    RMSNorm's forward twice a layer and once more, twice a layer more where
+    remat reruns the layer's segments, its backward and dw 2L + 1 times."""
     _need_card()
     cfg = dataclasses.replace(SMALL, remat=remat, remat_policy=policy)
     _, state, tokens, targets = _small_state(cfg)
     before = _build.launch_counts()
     cross_entropy_loss(forward(state["params"], tokens, cfg), targets).backward()
     assert all(p.grad is not None for p in state["params"]["layers"]["attn"].values())
-    assert _launched_since(before) == dict(zip(FLASH, (fwd, 2, 2)))
+    norms = {"rms_norm_fwd": 9 if remat else 5, "rms_norm_bwd": 5, "rms_norm_dw": 5}
+    assert _launched_since(before) == {**dict(zip(FLASH, (fwd, 2, 2))), **norms}
 
 
 @pytest.mark.gpu
@@ -362,16 +365,23 @@ def _pipeline_run(cfg, schedule, n_stages, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("schedule,launches", [("gpipe", (16, 16, 16)), ("1f1b", (24, 16, 16))])
-def test_pipeline_schedules_through_the_kernels(schedule, launches):
+@pytest.mark.parametrize("schedule,launches,norms", [("gpipe", (16, 16, 16), (65, 33)),
+                                                     ("1f1b", (24, 16, 16), (84, 36))])
+def test_pipeline_schedules_through_the_kernels(schedule, launches, norms):
     """4 layers (qkv_attn) in 2 stages, 4 microbatches of one row: each
     kernel once per layer per microbatch in each direction; 1F1B runs
-    stage 0's forward again in its backward slot (B1 4 x 2 x (1 + 2))."""
+    stage 0's forward again in its backward slot (B1 4 x 2 x (1 + 2)).
+    The RMSNorm forward twice a layer each time B1 runs and twice a layer a
+    microbatch in remat's recompute (GPipe 32 + 32, 1F1B 48 + 32), its
+    backward and dw twice a layer a microbatch (32); the final norm in the
+    head once forward and back (GPipe), once a microbatch (1F1B)."""
     _need_card()
     cfg = dataclasses.replace(SMALL, n_layers=4, remat=True, remat_policy="qkv_attn")
     before = _build.launch_counts()
     loss, grads = _pipeline_run(cfg, schedule, 2, 4)
-    assert _launched_since(before) == dict(zip(FLASH, launches))
+    fwd, bwd = norms
+    assert _launched_since(before) == {**dict(zip(FLASH, launches)), "rms_norm_fwd": fwd,
+                                       "rms_norm_bwd": bwd, "rms_norm_dw": bwd}
     ref_loss, ref_grads = _pipeline_run(dataclasses.replace(cfg, attention_impl="reference"),
                                         schedule, 2, 4)
     assert abs(float(loss) - float(ref_loss)) <= PIPE_LOSS_TOL
